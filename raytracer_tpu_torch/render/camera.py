@@ -1,0 +1,61 @@
+"""Perspective pinhole camera, the JAX package's ``variant="fb"``.
+
+Counterpart of ``raytracer_tpu/render/camera.py::perspective_rays`` for the
+FB comparison renderers (FB/fb_vs_traditional_complex.py:285-297), which
+apply the aspect ratio twice (once to screen_x, once through
+half_width = half_height * aspect): a reference bug kept knowingly.
+
+Rounding follows the JAX function as it runs on its TPU, where 64-bit mode
+is off: ``tan(fov/2)`` and ``tan(fov/2) * aspect`` are numpy float64 values
+rounded once to float32, and every tensor operation is float32.  (With
+JAX's 64-bit mode on, the numpy float64 scalar promotes the directions to
+float64 instead; the port does not follow that mode.)  The grid camera and
+the env variant come with the Whitted and RL slices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.vec import div_scalar
+
+
+def perspective_rays(width: int, height: int, *, fov: float = 60.0,
+                     origin=(0.0, 0.0, 0.0),
+                     sample_xy: Optional[torch.Tensor] = None,
+                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays through every pixel, float32.
+
+    ``sample_xy``: optional ``[..., H, W, 2]`` sub-pixel offsets in [0, 1)
+    (spp jitter; leading dimensions are kept, samples outermost); pixel
+    centres (0.5, 0.5) by default.  Returns ``(origins, dirs)``, each
+    ``[N, 3]`` with ``N`` = samples x H x W; dirs unnormalised (the tracer
+    normalises them)."""
+    dev = resolve_device(device) if sample_xy is None else sample_xy.device
+    f32 = torch.float32
+    aspect = width / height
+    fov_rad = np.radians(fov)
+    half_height = float(np.float32(np.tan(fov_rad / 2)))
+    half_width = float(np.float32(np.tan(fov_rad / 2) * aspect))
+    px = torch.arange(width, dtype=f32, device=dev)[None, :]
+    py = torch.arange(height, dtype=f32, device=dev)[:, None]
+    if sample_xy is None:
+        sx = torch.tensor(0.5, dtype=f32, device=dev)
+        sy = sx
+    else:
+        sx = sample_xy[..., 0].to(f32)
+        sy = sample_xy[..., 1].to(f32)
+    ndc_x = div_scalar(px + sx, width)
+    ndc_y = div_scalar(py + sy, height)
+    screen_x = (2.0 * ndc_x - 1.0) * aspect
+    screen_y = 1.0 - 2.0 * ndc_y
+    screen_x = screen_x * half_width
+    screen_y = screen_y * half_height
+    screen_x, screen_y = torch.broadcast_tensors(screen_x, screen_y)
+    dirs = torch.stack([screen_x, screen_y, torch.full_like(screen_x, -1.0)],
+                       dim=-1).reshape(-1, 3)
+    origins = torch.tensor(origin, dtype=f32, device=dev).expand_as(dirs)
+    return origins, dirs

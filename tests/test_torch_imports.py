@@ -1,0 +1,38 @@
+"""The port stands alone: no module of raytracer_tpu_torch, and not
+chip_smoke.py, imports JAX or anything of the JAX package (the machine
+with the card has no JAX)."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).parents[1]
+SOURCES = sorted((ROOT / "raytracer_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "raytracer_tpu")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_jax_package_import(path):
+    names = list(_imported(ast.parse(path.read_text(), str(path))))
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_sources_found():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(SOURCES) >= 12

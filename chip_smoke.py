@@ -2,32 +2,49 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It builds the
-port's CUDA kernel with nvcc, drives the main path (the chandelier
-path-traced frame, 800x600, 8 spp, 8 bounces, mirror_threshold=0.0)
-through ``render_path``, holds the kernel against its plain PyTorch
-version, checks the frame against the executed-reference golden, times
-everything on the card's clock and prints JSON lines.  The last line is
-``{"ok": true, "device": {...}}``; any failed phase exits non-zero before
-it.  Without a CUDA device it exits 1 and prints no result.
+port's CUDA kernels with nvcc (all sources at once), then drives its two
+paths, each with the kernels' launch counts set to 0 just before and read
+just after:
+
+* the path tracer: the chandelier path-traced frame, 800x600, 8 spp, 8
+  bounces, mirror_threshold=0.0, through ``render_path``;
+* the Whitted tracer: planets2 at 2001x2001, 10 bounces, and marbles4 at
+  801x801, 8 bounces, through ``render_whitted`` (the whole-trace Whitted
+  kernel, and the nearest-hit kernel for the shadow sweeps).
+
+It holds every kernel against its plain PyTorch version, checks frames
+against the executed-reference goldens, times everything on the card's
+clock and prints JSON lines.  The last line is ``{"ok": true, "device":
+{...}}``; any failed phase exits non-zero before it.  Without a CUDA
+device it exits 1 and prints no result.
 """
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core import cuda_path, native
-from raytracer_tpu_torch.render.camera import perspective_rays
+from raytracer_tpu_torch.core import (cuda_intersect, cuda_path,
+                                      cuda_whitted, native)
+from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
+from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
 from raytracer_tpu_torch.render.path_renderer import render_path
+from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
+from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.library import chandelier_scene
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
+from raytracer_tpu_torch.trace.whitted import trace_whitted
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "showcase" / "parity_fullres" / "chandelier_800x600_ref.npy"
+WHITTED_GOLDEN = (ROOT / "showcase" / "parity_fullres" /
+                  "true_original_601_ref.npy")
+SOURCES = ("path_trace", "whitted_trace", "nearest_hit")
 SEED = 0
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
@@ -45,6 +62,26 @@ OPS_DIRECT_PER_LIGHT = 32
 OPS_CONTINUE_FIXED = 82
 OPS_PER_RAY = 10
 BYTES_PER_RAY = 24 + 12 + 16     # origin + direction in; rgb + counts out
+# f32 operations of csrc/whitted_trace.cu and csrc/nearest_hit.cu, counted
+# from their code (csrc/sphere.cuh sweep; whitted_trace.cu helpers): the
+# sweep per sphere and ray-level; per level run, the hit point, normal and
+# budget test; a mirror bounce (reflect3); a glass entry (refract3 in and a
+# far-root exit); per walk step the outward refract3, and per internal
+# reflection a reflect3 and a far-root exit; the first normalisation.
+W_OPS_SWEEP_PER_SPHERE = 26
+W_OPS_LEVEL = 20
+W_OPS_MIRROR = 42
+W_OPS_GLASS_ENTRY = 98
+W_OPS_WALK_STEP = 61
+W_OPS_WALK_REFLECT = 82
+W_OPS_PER_RAY = 10
+W_BYTES_IN, W_BYTES_SUPPRESS, W_BYTES_OUT = 24, 4, 1 + 4 + 4 + 12 + 12 + 4 + 4
+NH_BYTES_OUT = 4 + 4 + 1          # t, idx, found
+# Fallback bounds of the Whitted kernel, the JAX package's own for its TPU
+# kernel (tests/test_pallas_whitted.py:28-49): discrete fields exact, floats
+# within rtol/atol 2e-4, at most 0.1% of pixels off by more than 1/255.
+W_RTOL = W_ATOL = 2e-4
+W_PIXELS_OFF = 1e-3
 
 
 class PhaseError(RuntimeError):
@@ -72,6 +109,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(ops, nbytes):
+    """Least time for ``ops`` f32 operations and ``nbytes`` bytes: the
+    larger of the two over the card's peaks, and which one sets it."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
 def bound_ms(counts, n_spheres, n_emissive, max_bounces, n_rays):
     """Least time for the kernel's work on these inputs: the larger of its
     f32 operations over the f32 peak and its bytes over the HBM rate."""
@@ -83,13 +128,250 @@ def bound_ms(counts, n_spheres, n_emissive, max_bounces, n_rays):
            + (OPS_DIRECT_PER_LIGHT * n_emissive + OPS_CONTINUE_FIXED)
            * levels_cont)
     nbytes = BYTES_PER_RAY * n_rays
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", ops, nbytes)
+    return (*bound(ops, nbytes), ops, nbytes)
 
 
 def stats_close(a, b, rel):
     return all(abs(a[k] - b[k]) <= rel * max(abs(b[k]), 1) for k in b)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    cuda_path.path_trace.launches = 0
+    cuda_whitted.whitted_trace.launches = 0
+    cuda_intersect.nearest_hit.launches = 0
+
+
+def read_counts():
+    return {"path_trace": cuda_path.path_trace.launches,
+            "whitted_trace": cuda_whitted.whitted_trace.launches,
+            "nearest_hit": cuda_intersect.nearest_hit.launches}
+
+
+def notebook_frame(name, multiple, dev):
+    """A library scene and its grid camera at ``multiple`` (host ms of the
+    camera, which builds float64 numpy on the host, beside it)."""
+    scene, gl, pl, p = getattr(library, name + "_scene")(device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o, d, h, w = grid_rays(p["ray_count"], p["ray_step"], multiple,
+                           origin=p["camera_position"], device=dev)
+    torch.cuda.synchronize()
+    camera_ms = (time.perf_counter() - t0) * 1e3
+    kw = dict(max_bounces=p["max_bounces"], background=p["background"],
+              miss_colour=p.get("sky_colour"))
+    return scene, gl, pl, o, d, h, w, kw, camera_ms
+
+
+def compare_traces(a, b):
+    """``(bit_equal, max |float diff|, within the fallback bound)``."""
+    discrete = all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("hit", "idx", "bounces", "through"))
+    floats = ("t", "point", "normal")
+    err = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+              for f in floats)
+    close = all(torch.allclose(getattr(a, f), getattr(b, f), rtol=W_RTOL,
+                               atol=W_ATOL) for f in floats)
+    return discrete and err == 0.0, err, discrete and close
+
+
+def compare_images(a, b):
+    """``(bit_equal, max |diff|, share of pixels off by more than 1/255)``."""
+    diff = (a - b).abs()
+    off = float((diff.amax(-1) > 1 / 255 + 1e-7).float().mean())
+    return bool(torch.equal(a, b)), float(diff.max()), off
+
+
+def whitted_phases(dev, card):
+    """The Whitted path's phases; returns its two ``kernels`` entries."""
+    # whitted_main: planets2 2001x2001@10 and marbles4 801x801@8 through
+    # render_whitted, kernel then plain.
+    main = {}
+    for name, multiple in (("planets2", 10), ("marbles4", 4)):
+        t0 = time.perf_counter()
+        scene, gl, pl, o, d, h, w, kw, camera_ms = notebook_frame(
+            name, multiple, dev)
+        reset_counts()
+        img_k = render_whitted(scene, gl, pl, o, d, h, w, impl="kernel", **kw)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check(launches["whitted_trace"] >= 1,
+              f"{name}: render_whitted launched no whitted_trace kernel")
+        check(launches["nearest_hit"] >= pl.count >= 1,
+              f"{name}: the shadow sweeps launched no nearest_hit kernel")
+        img_p = render_whitted(scene, gl, pl, o, d, h, w, impl="plain", **kw)
+        torch.cuda.synchronize()
+        check(tuple(img_k.shape) == (h, w, 3), f"image shape {img_k.shape}")
+        check(bool(torch.isfinite(img_k).all()), "non-finite pixels")
+        check(float(img_k.min()) >= 0.0 and float(img_k.max()) <= 1.0,
+              "pixels outside [0, 1]")
+        img_equal, img_err, img_off = compare_images(img_k, img_p)
+        eg, em = material_flags(scene)
+        tkw = dict(enable_glass=eg, enable_mirror=em)
+        res_k = trace_whitted(scene, o, d, kw["max_bounces"], impl="kernel",
+                              **tkw)
+        res_p = trace_whitted(scene, o, d, kw["max_bounces"], impl="plain",
+                              **tkw)
+        tr_equal, tr_err, tr_close = compare_traces(res_k, res_p)
+        hit_frac = float(res_k.hit.float().mean())
+        emit({"phase": "whitted_main", "scene": name,
+              "frame": f"{w}x{h}/{kw['max_bounces']}", "rays": h * w,
+              "launches": launches, "image_bit_equal": img_equal,
+              "image_max_abs_err": img_err, "pixels_off_fraction": img_off,
+              "trace_bit_equal": tr_equal, "trace_max_abs_err": tr_err,
+              "hit_fraction": hit_frac,
+              "max_through": int(res_k.through.max()),
+              "max_bounces_reached": int(res_k.bounces.max()),
+              "grid_rays_ms": camera_ms,
+              "seconds": time.perf_counter() - t0})
+        check(0.0 < hit_frac <= 1.0, f"{name}: no ray hit anything")
+        check((img_equal or img_off <= W_PIXELS_OFF)
+              and (tr_equal or tr_close),
+              f"{name}: kernel vs plain: image {img_err} max, {img_off} of "
+              f"pixels off; trace {tr_err} max")
+        main[name] = dict(scene=scene, gl=gl, pl=pl, o=o, d=d, h=h, w=w,
+                          kw=kw, tkw=tkw, launches=launches, img_p=img_p,
+                          res_k=res_k, err=tr_err, camera_ms=camera_ms)
+    whitted_err = max(m["err"] for m in main.values())
+
+    # whitted_golden: true_original 601x601@5 through the kernel against
+    # the executed reference.
+    t0 = time.perf_counter()
+    scene, gl, pl, o, d, h, w, kw, _ = notebook_frame("true_original", 3,
+                                                      dev)
+    img = render_whitted(scene, gl, pl, o, d, h, w, impl="kernel", **kw)
+    img = img.cpu().numpy().astype(np.float64)
+    ref = np.load(WHITTED_GOLDEN).astype(np.float64)
+    dd = np.abs(img - ref)
+    agree = dd.max(axis=-1) <= 1 / 255
+    divergent = int((~agree).sum())
+    mse_agree = float(np.mean(dd[agree] ** 2))
+    emit({"phase": "whitted_golden", "frame": f"{w}x{h}/5",
+          "divergent_pixels": divergent, "mse_agreeing": mse_agree,
+          "exact_pixel_fraction": float((dd.max(-1) == 0).mean()),
+          "bounds": {"divergent_pixels": "<= 32", "mse_agreeing": "< 1e-8"},
+          "seconds": time.perf_counter() - t0})
+    check(divergent <= 32 and mse_agree < 1e-8,
+          f"whitted golden: {divergent} divergent pixels, mse {mse_agree}")
+
+    # nearest_hit: kernel vs plain on planets2's primary rays and a ragged
+    # 3601-ray set, ids suppressed on every third ray, both metrics and
+    # both hit tests; then a planets2 frame with every level's sweep
+    # through the kernel.
+    t0 = time.perf_counter()
+    m = main["planets2"]
+    scene = m["scene"]
+    table = cuda_intersect.sphere_table(scene, **m["tkw"])
+    n_sph = len(table.spec)
+    dn = torch.nn.functional.normalize(m["d"], dim=1).contiguous()
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    o_r = (torch.rand((3601, 3), device=dev, generator=gen) * 6 - 3)
+    d_r = torch.nn.functional.normalize(
+        torch.randn((3601, 3), device=dev, generator=gen), dim=1)
+    nh_err, nh_equal = 0.0, True
+    for o_s, d_s in ((m["o"], dn), (o_r.contiguous(), d_r.contiguous())):
+        i = torch.arange(o_s.shape[0], device=dev)
+        sup = torch.where(i % 3 == 0, table.ids[(i // 3) % n_sph],
+                          NO_SUPPRESS).to(torch.int32)
+        for by_abs in (False, True):
+            for fast in (False, True):
+                a = cuda_intersect.nearest_hit(o_s, d_s, sup, table,
+                                               by_abs=by_abs, fast=fast)
+                b = cuda_intersect.nearest_hit_plain(o_s, d_s, sup, table,
+                                                     by_abs=by_abs, fast=fast)
+                nh_equal &= all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+                both = a[2] & b[2]
+                nh_err = max(nh_err, float(
+                    (a[0] - b[0]).abs().where(both, 0.0).max()))
+    img_s = render_whitted(scene, m["gl"], m["pl"], m["o"], m["d"], m["h"],
+                           m["w"], impl="plain", sweep="kernel", **m["kw"])
+    sweep_equal = bool(torch.equal(img_s, m["img_p"]))
+    emit({"phase": "nearest_hit", "rays": [m["o"].shape[0], 3601],
+          "bit_equal": nh_equal, "max_abs_err": nh_err,
+          "sweep_kernel_frame_bit_equal": sweep_equal,
+          "seconds": time.perf_counter() - t0})
+    check(nh_equal, f"nearest_hit kernel vs plain differ ({nh_err})")
+    check(sweep_equal, "planets2 frame with sweep='kernel' differs from "
+          "the plain frame")
+
+    # whitted_times: both kernels at the planets2 shape on the card's
+    # clock, their bounds from this run's data, the frame's wall time.
+    t0 = time.perf_counter()
+    o, d, R = m["o"], m["d"], m["o"].shape[0]
+    mb = m["kw"]["max_bounces"]
+    for _ in range(3):
+        cuda_whitted.whitted_trace(o, d, None, table, max_bounces=mb)
+    w_ms = cuda_ms(lambda: cuda_whitted.whitted_trace(
+        o, d, None, table, max_bounces=mb), 20)
+    w_plain_ms = cuda_ms(lambda: cuda_whitted.whitted_trace_plain(
+        o, d, None, table, max_bounces=mb), 2)
+    work = {}
+    cuda_whitted.whitted_trace_plain(o, d, None, table, max_bounces=mb,
+                                     counters=work)
+    w_ops = (W_OPS_PER_RAY * R
+             + (W_OPS_SWEEP_PER_SPHERE * n_sph + W_OPS_LEVEL) * work["levels"]
+             + W_OPS_MIRROR * work["mirror"]
+             + W_OPS_GLASS_ENTRY * work["glass"]
+             + W_OPS_WALK_STEP * work["walk_steps"]
+             + W_OPS_WALK_REFLECT * (work["walk_steps"] - work["walk_exits"]))
+    w_bytes = (W_BYTES_IN + W_BYTES_OUT) * R
+    w_bound, w_by = bound(w_ops, w_bytes)
+    # The nearest-hit kernel as the shadow sweep runs it: from the
+    # termini toward the first point light, the shaded sphere suppressed.
+    res = m["res_k"]
+    light = m["pl"].position[0]
+    to_light = torch.nn.functional.normalize(light - res.point, dim=1)
+    self_id = table.ids[res.idx]
+    nh_args = (res.point, to_light.contiguous(), self_id, table)
+    for _ in range(3):
+        cuda_intersect.nearest_hit(*nh_args)
+    nh_ms = cuda_ms(lambda: cuda_intersect.nearest_hit(*nh_args), 50)
+    nh_plain_ms = cuda_ms(lambda: cuda_intersect.nearest_hit_plain(*nh_args),
+                          3)
+    nh_bound, nh_by = bound(
+        W_OPS_SWEEP_PER_SPHERE * n_sph * R,
+        (W_BYTES_IN + W_BYTES_SUPPRESS + NH_BYTES_OUT) * R)
+    walls = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(5):
+        t1 = time.perf_counter()
+        render_whitted(scene, m["gl"], m["pl"], o, d, m["h"], m["w"],
+                       impl="kernel", **m["kw"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit({"phase": "whitted_times", **card,
+          "frame": f"planets2 {m['w']}x{m['h']}/{mb}", "rays": R,
+          "whitted_trace_ms": w_ms, "whitted_trace_plain_ms": w_plain_ms,
+          "whitted_trace_bound_ms": w_bound, "whitted_trace_bound_by": w_by,
+          "whitted_trace_bound_ops": w_ops,
+          "whitted_trace_bound_bytes": w_bytes,
+          "whitted_trace_bound_share": w_bound / w_ms, "work": work,
+          "nearest_hit_ms": nh_ms, "nearest_hit_plain_ms": nh_plain_ms,
+          "nearest_hit_bound_ms": nh_bound, "nearest_hit_bound_by": nh_by,
+          "nearest_hit_bound_share": nh_bound / nh_ms,
+          "launches_per_frame": m["launches"],
+          "render_whitted_wall_ms": walls,
+          "render_whitted_wall_ms_min": min(walls),
+          "primary_rays_per_s_wall": R / (min(walls) / 1e3),
+          "grid_rays_host_ms": m["camera_ms"],
+          "max_memory_allocated_bytes": peak, "library_ms": None,
+          "library_note": "no single PyTorch call computes either function",
+          "seconds": time.perf_counter() - t0})
+
+    return [
+        {"name": "whitted_trace", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/whitted_trace.cu",
+         "replaces": "raytracer_tpu/core/pallas_whitted.py:110",
+         "launches": m["launches"]["whitted_trace"],
+         "max_abs_err": whitted_err, "ms": w_ms, "plain_ms": w_plain_ms,
+         "bound_ms": w_bound, "bound_by": w_by, "library_ms": None},
+        {"name": "nearest_hit", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/nearest_hit.cu",
+         "replaces": "raytracer_tpu/core/pallas_intersect.py:42",
+         "launches": m["launches"]["nearest_hit"], "max_abs_err": nh_err,
+         "ms": nh_ms, "plain_ms": nh_plain_ms, "bound_ms": nh_bound,
+         "bound_by": nh_by, "library_ms": None}]
 
 
 def main():
@@ -117,21 +399,29 @@ def main():
 
     # 2. Build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    lib = native.load("path_trace")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc a source
+        libs = dict(zip(SOURCES, pool.map(native.load, SOURCES)))
+    lib = libs["path_trace"]
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "library": str(lib.path.relative_to(ROOT)),
           "nvcc_seconds": lib.build_seconds, "ptxas": ptxas,
           "seconds": time.perf_counter() - t0})
+    emit({"phase": "whitted_build", "libraries": {
+        n: {"library": str(libs[n].path.relative_to(ROOT)),
+            "nvcc_seconds": libs[n].build_seconds,
+            "ptxas": [ln.strip() for ln in libs[n].build_log.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+        for n in SOURCES[1:]}})
 
     # 3. Main path: render_path through the kernel, then the plain version
     #    on the same draws (same seed).
     t0 = time.perf_counter()
-    scene, params = chandelier_scene(device=dev)
+    scene, _, _, params = chandelier_scene(device=dev)
     kw = dict(width=W, height=H, spp=SPP, max_bounces=BOUNCES,
               fov=params["fov"], camera_position=params["camera_position"],
               mirror_threshold=0.0, background=BG, device=dev)
-    cuda_path.path_trace.launches = 0
+    reset_counts()
     img_k, st_k = render_path(scene, impl="kernel",
                               generator=torch.Generator(dev).manual_seed(SEED),
                               **kw)
@@ -275,13 +565,15 @@ def main():
           "library_note": "no single PyTorch call computes this function",
           "seconds": time.perf_counter() - t0})
 
+    whitted_kernels = whitted_phases(dev, card)
+
     emit({"kernels": [{
         "name": "path_trace", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/path_trace.cu",
         "replaces": "raytracer_tpu/core/pallas_path.py:213",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-        "library_ms": None}]})
+        "library_ms": None}] + whitted_kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

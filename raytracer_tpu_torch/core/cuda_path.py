@@ -196,7 +196,7 @@ def path_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
             dfx, dfy, dfz = rlx, rly, rlz
         else:
             u = uniforms[lvl]
-            theta = torch.acos(torch.sqrt(u[:, 0]))
+            theta = torch.acos(vec.sqrt(u[:, 0]))
             phi = 2.0 * math.pi * u[:, 1]
             dfx, dfy, dfz = local_to_world_c(theta, phi, nx, ny, nz)
 

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports a plain ``extern "C"`` interface and is
 compiled by ``nvcc`` into a shared library at first use, then loaded with
 ``ctypes``: a build of a few seconds, with no PyTorch headers in it.  The
 library lands in ``build/<name>-<hash>/`` at the repository root, named by
-a hash of its source and flags, so an edited source builds anew and an
-unchanged one is reused.  Without ``nvcc`` this raises.
+a hash of its source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source builds anew and an unchanged one is reused.  Without
+``nvcc`` this raises.
 """
 from __future__ import annotations
 
@@ -58,8 +59,10 @@ def load(name: str) -> NativeLibrary:
     if name in _LOADED:
         return _LOADED[name]
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
+    # The shared headers are hashed too, so an edited header builds anew.
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_DIR / f"{name}-{digest}"
     out = out_dir / f"lib{name}.so"
     log_path = out_dir / "build.log"

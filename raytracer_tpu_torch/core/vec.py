@@ -3,12 +3,23 @@
 Counterpart of the component (``*_c``) helpers of
 ``raytracer_tpu/core/vec.py``: the same operations in the same order, one
 rounding per operation, so results are bit-identical on the CPU and match
-the CUDA kernel (built with ``-fmad=false``) on the card.  Sums associate
+the CUDA kernels (built with ``-fmad=false``) on the card.  Sums associate
 left to right, as the reference's ``x*x + y*y + z*z`` does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, as IEEE ``sqrtf``/``sqrt`` on the card
+    and in the JAX package.  PyTorch's CPU ``sqrt`` is not: on vectors of
+    more than a few dozen elements about 0.6% of its float32 and float64
+    results are one ulp off, so CPU tensors take numpy's."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
 
 
 def div_scalar(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -23,7 +34,7 @@ def dot_c(ax, ay, az, bx, by, bz):
 
 
 def magnitude_c(x, y, z):
-    return torch.sqrt(dot_c(x, y, z, x, y, z))
+    return sqrt(dot_c(x, y, z, x, y, z))
 
 
 def normalise_safe_c(x, y, z, eps: float = 1e-20):
@@ -37,3 +48,27 @@ def reflect_c(vx, vy, vz, nx, ny, nz):
     nx, ny, nz = normalise_safe_c(nx, ny, nz)
     s = 2.0 * dot_c(vx, vy, vz, nx, ny, nz)
     return normalise_safe_c(vx - nx * s, vy - ny * s, vz - nz * s)
+
+
+def angle_between_c(ax, ay, az, bx, by, bz):
+    """``arccos(a.b / (|a||b|))`` with the cosine clamped to [-1, 1]."""
+    c = (dot_c(ax, ay, az, bx, by, bz)
+         / (magnitude_c(ax, ay, az) * magnitude_c(bx, by, bz)))
+    return torch.acos(torch.clamp(c, -1.0, 1.0))
+
+
+def refract_c(vx, vy, vz, nx, ny, nz, eta_a, eta_b):
+    """Snell refraction of ``v`` through the surface with normal ``n``, from
+    medium ``eta_a`` into ``eta_b`` (tensors).  Returns ``(dx, dy, dz,
+    tir)``; ``tir`` marks total internal reflection, where the direction is
+    garbage.  cosI is ``|v.n|`` clamped; the normal is not flipped."""
+    vx, vy, vz = normalise_safe_c(vx, vy, vz)
+    nx, ny, nz = normalise_safe_c(nx, ny, nz)
+    eta = eta_a / eta_b
+    cos_i = torch.abs(torch.clamp(dot_c(vx, vy, vz, nx, ny, nz), -1.0, 1.0))
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    tir = k < 0.0
+    f = eta * cos_i - sqrt(torch.clamp_min(k, 0.0))
+    ox, oy, oz = normalise_safe_c(vx * eta + nx * f, vy * eta + ny * f,
+                                  vz * eta + nz * f)
+    return ox, oy, oz, tir

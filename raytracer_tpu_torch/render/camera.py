@@ -1,16 +1,19 @@
-"""Perspective pinhole camera, the JAX package's ``variant="fb"``.
+"""Cameras: the notebooks' planar grid and the perspective pinhole of the
+JAX package's ``variant="fb"``.
 
-Counterpart of ``raytracer_tpu/render/camera.py::perspective_rays`` for the
-FB comparison renderers (FB/fb_vs_traditional_complex.py:285-297), which
-apply the aspect ratio twice (once to screen_x, once through
-half_width = half_height * aspect): a reference bug kept knowingly.
+Counterpart of ``raytracer_tpu/render/camera.py``.  ``grid_rays`` is built
+in float64 numpy exactly as the JAX package builds it and cast once.
+``perspective_rays`` serves the FB comparison renderers
+(FB/fb_vs_traditional_complex.py:285-297), which apply the aspect ratio
+twice (once to screen_x, once through half_width = half_height *
+aspect): a reference bug kept knowingly.
 
 Rounding follows the JAX function as it runs on its TPU, where 64-bit mode
 is off: ``tan(fov/2)`` and ``tan(fov/2) * aspect`` are numpy float64 values
 rounded once to float32, and every tensor operation is float32.  (With
 JAX's 64-bit mode on, the numpy float64 scalar promotes the directions to
-float64 instead; the port does not follow that mode.)  The grid camera and
-the env variant come with the Whitted and RL slices.
+float64 instead; the port does not follow that mode.)  The env variant
+comes with the RL slice.
 """
 from __future__ import annotations
 
@@ -21,6 +24,33 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.vec import div_scalar
+
+
+def grid_rays(ray_count: int = 100, ray_step: float = 0.01,
+              multiple: int = 1, origin=(0.0, 0.0, 1.0),
+              dtype=torch.float32, device=None
+              ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Notebook grid rays (RL/Planets 1.ipynb cell 0): ``(origins [H*W, 3],
+    dirs [H*W, 3], H, W)``.
+
+    ``X = [-N..N] * step``, ``Y = [N..-N] * step`` with ``N = ray_count *
+    multiple`` and ``step = ray_step / multiple``; directions ``(X, Y, -1)``
+    unnormalised (the tracer normalises them); the image is ``(2N+1) x
+    (2N+1)``, row-major with Y outer (top row first)."""
+    dev = resolve_device(device)
+    n = ray_count * multiple
+    step = ray_step / multiple
+    # The reference's list construction: r*step for integer r.
+    xs = np.array([r * step for r in range(-n, 0)] +
+                  [r * step for r in range(0, n + 1)])
+    ys = np.array([r * step for r in range(n, 0, -1)] +
+                  [-r * step for r in range(0, n + 1)])
+    X, Y = np.meshgrid(xs, ys)
+    dirs = np.stack([X, Y, np.full_like(X, -1.0)], axis=-1).reshape(-1, 3)
+    h, w = len(ys), len(xs)
+    o = torch.from_numpy(np.asarray(origin, dtype=np.float64)).to(dtype)
+    origins = o.to(dev).expand(h * w, 3).contiguous()
+    return origins, torch.from_numpy(dirs).to(dtype).to(dev), h, w
 
 
 def perspective_rays(width: int, height: int, *, fov: float = 60.0,

@@ -1,0 +1,97 @@
+"""Whitted frame renderer: camera rays, wavefront trace, shading, image.
+
+Counterpart of ``raytracer_tpu/render/renderer.py::render_whitted`` (the
+reference's per-pixel loops of RL/output5.py and the Planets/Marbles
+notebook cells).  Two output conventions, both the reference's:
+``mode="unit"`` is ``min(1, c/255)`` per channel (RL/output5.py:514-518);
+``mode="raw"`` is the raw reference-unit colour, which may exceed 255.
+Misses take ``miss_colour`` (Marbles 4's sky) and hits are shaded on
+``background``.
+
+``impl``: ``"kernel"`` traces through the whole-trace Whitted kernel and
+sends the shadow sweeps through the nearest-hit kernel (float32; float64
+raises); ``"plain"`` runs plain PyTorch in float32 or float64 (the
+reference-parity goldens run float64 this way); ``"auto"`` is ``"kernel"``
+for rays on ``cuda`` and ``"plain"`` for rays on the CPU.  The JAX
+package's ``impl="pallas"`` maps to ``"kernel"`` and ``"fused"`` to
+``"plain"``; ``sweep="kernel"`` (with ``impl="plain"``) is its
+``use_pallas=True``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.vec import div_scalar
+from ..scene.types import GlobalLights, PointLights, Scene
+from ..trace.shade import terminal_rgb
+from ..trace.whitted import trace_whitted
+
+
+def material_flags(scene: Scene):
+    """Does the scene hold any exactly-1.0 transparent / reflective sphere
+    (the only values the Whitted tracer's ``== True`` rule reacts to)?
+    ``(enable_glass, enable_mirror)``, read on the host."""
+    return (bool((scene.transparent == 1.0).any()),
+            bool((scene.reflective == 1.0).any()))
+
+
+def render_whitted(scene: Scene, glights: GlobalLights, plights: PointLights,
+                   origins: torch.Tensor, dirs: torch.Tensor, height: int,
+                   width: int, *, max_bounces: int = 5,
+                   background=(0.0, 0.0, 0.0),
+                   miss_colour: Optional[tuple] = None, mode: str = "unit",
+                   chunk_rays: Optional[int] = None, impl: str = "auto",
+                   sweep: str = "plain",
+                   n_valid: Optional[int] = None) -> torch.Tensor:
+    """Render an ``[H, W, 3]`` frame on the rays' device (the scene and
+    lights move there).
+
+    ``chunk_rays``: trace and shade in chunks of this many rays, the last
+    one padded with copies of its last ray (bounded memory for mega
+    frames).  ``n_valid``: only the first ``n_valid == height * width``
+    rays form the image (a padded wavefront)."""
+    if mode not in ("unit", "raw"):
+        raise ValueError(f"unknown mode {mode!r}")
+    dev = origins.device
+    if impl == "auto":
+        impl = "kernel" if dev.type == "cuda" else "plain"
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    n = origins.shape[0]
+    n_out = n if n_valid is None else n_valid
+    if n_out != height * width:
+        raise ValueError(f"n_valid/ray count {n_out} != {height}x{width}")
+    scene, glights, plights = scene.to(dev), glights.to(dev), plights.to(dev)
+    enable_glass, enable_mirror = material_flags(scene)
+    background = tuple(float(b) for b in background)
+    miss = torch.tensor(background if miss_colour is None else
+                        tuple(float(c) for c in miss_colour),
+                        dtype=origins.dtype, device=dev)
+
+    def shade(o, d):
+        res = trace_whitted(scene, o, d, max_bounces,
+                            enable_glass=enable_glass,
+                            enable_mirror=enable_mirror, impl=impl,
+                            sweep=sweep)
+        rgb = terminal_rgb(scene, glights, plights, res, background,
+                           impl=impl)
+        return torch.where(res.hit[:, None], rgb, miss[None, :])
+
+    if chunk_rays is None or chunk_rays >= n:
+        flat = shade(origins, dirs)
+    else:
+        parts = []
+        for i in range(0, n, chunk_rays):
+            o, d = origins[i:i + chunk_rays], dirs[i:i + chunk_rays]
+            pad = chunk_rays - o.shape[0]
+            if pad:                        # edge padding, as JAX pads
+                o = torch.cat([o, o[-1:].expand(pad, 3)])
+                d = torch.cat([d, d[-1:].expand(pad, 3)])
+            parts.append(shade(o, d))
+        flat = torch.cat(parts)
+    img = flat[:n_out].reshape(height, width, 3)
+    if mode == "unit":
+        return torch.clamp_max(div_scalar(img, 255.0), 1.0)
+    return img

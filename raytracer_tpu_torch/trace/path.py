@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import vec
 from ..scene.types import Scene
 
 
@@ -115,7 +116,7 @@ def _direct_lighting_c(rows, emissive_idx, px, py, pz, nx, ny, nz, idx,
             ldotn = tx * nx + ty * ny + tz * nz
             w = torch.clamp_min(ldotn * inv, 0.0) * (inv * inv) * 0.3
         else:
-            dist = torch.sqrt(d2)
+            dist = vec.sqrt(d2)
             den = torch.clamp_min(dist, 1e-20)
             cosang = (tx / den) * nx + (ty / den) * ny + (tz / den) * nz
             w = (torch.clamp_min(cosang, 0.0)

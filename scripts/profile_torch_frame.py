@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of one port frame goes, on one NVIDIA GPU.
+"""Where the time of the port's frames goes, on one NVIDIA GPU.
 
-Runs the main path of the PyTorch/CUDA port (chandelier traditional frame,
-800x600, 8 spp, 8 bounces, mirror_threshold=0.0) and reports:
+Runs the path tracer's frame (chandelier traditional, 800x600, 8 spp, 8
+bounces, mirror_threshold=0.0) and the Whitted tracer's (planets2,
+2001x2001, 10 bounces) and reports, for each:
 
 * a staged breakdown on the host clock, each stage ended by
   ``torch.cuda.synchronize()``: jitter draw, camera, scene-table set-up,
   path kernel, stats sums, image assembly, and the whole ``render_path``;
 * a ``torch.profiler`` window over a few frames: device time by kernel
   name and the device's idle share of the window;
-* the pixel-centre frame (spp 1) traced by the kernel on the card and by
-  the plain version on the CPU: how many camera directions and samples
-  differ between the two devices.
+* the path tracer's pixel-centre frame (spp 1) traced by the kernel on
+  the card and by the plain version on the CPU, and the Whitted tracer's
+  true_original 601x601 frame rendered both ways: how many rays and
+  pixels differ between the two devices.
 
 Run from the repository root: ``python3 scripts/profile_torch_frame.py``.
 Prints one JSON line per phase, with the card's name and power limit.
@@ -27,10 +29,17 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from raytracer_tpu_torch.core import cuda_path  # noqa: E402
+from raytracer_tpu_torch.core import (  # noqa: E402
+    cuda_intersect, cuda_path, cuda_whitted)
+from raytracer_tpu_torch.core.vec import div_scalar  # noqa: E402
 from raytracer_tpu_torch.render import path_renderer  # noqa: E402
-from raytracer_tpu_torch.render.camera import perspective_rays  # noqa: E402
+from raytracer_tpu_torch.render.camera import (  # noqa: E402
+    grid_rays, perspective_rays)
+from raytracer_tpu_torch.render.renderer import (  # noqa: E402
+    material_flags, render_whitted)
+from raytracer_tpu_torch.scene import library  # noqa: E402
 from raytracer_tpu_torch.scene.library import chandelier_scene  # noqa: E402
+from raytracer_tpu_torch.trace.shade import terminal_rgb  # noqa: E402
 from raytracer_tpu_torch.trace.path import (  # noqa: E402
     PathStats, emissive_indices, no_diffuse_possible, scene_spec)
 
@@ -47,6 +56,96 @@ def stage_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def profile(frame, frames=3):
+    """``torch.profiler`` over a few frames: the window, device time by
+    kernel name and the device's idle share of the window."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            frame()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # Device time from the kernels' own events only: key_averages() also
+    # gives each aten operator the device time of its kernels, so summing
+    # every row counts that time twice.
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        calls, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    device_us = sum(us for _, us in by_name.values())
+    rows = sorted(({"name": k[:80], "calls": c, "device_ms": us / 1e3}
+                   for k, (c, us) in by_name.items()),
+                  key=lambda r: -r["device_ms"])
+    return {"window_ms": window_ms, "device_busy_ms": device_us / 1e3,
+            "device_idle_share": 1 - device_us / 1e3 / window_ms,
+            "top": rows[:12]}
+
+
+def whitted(dev, card):
+    """The planets2 2001x2001@10 Whitted frame: stages, profiler, and the
+    true_original 601x601 frame on the card against the CPU."""
+    scene, gl, pl, p = library.planets2_scene(device=dev)
+    kw = dict(max_bounces=p["max_bounces"], background=p["background"])
+    o, d, h, w = grid_rays(p["ray_count"], p["ray_step"], p["multiple"],
+                           origin=p["camera_position"], device=dev)
+
+    def frame():
+        return render_whitted(scene, gl, pl, o, d, h, w, impl="kernel", **kw)
+
+    for _ in range(3):
+        frame()                          # build and warm up
+    stages = {k: [] for k in ("camera", "setup", "kernel", "shading",
+                              "assemble", "render_whitted")}
+    for _ in range(REPS):
+        _, t = stage_ms(lambda: grid_rays(
+            p["ray_count"], p["ray_step"], p["multiple"],
+            origin=p["camera_position"], device=dev))
+        stages["camera"].append(t)
+        (_, table), t = stage_ms(lambda: (
+            material_flags(scene), cuda_intersect.sphere_table(scene)))
+        stages["setup"].append(t)
+        res, t = stage_ms(lambda: cuda_whitted.whitted_trace(
+            o, d, None, table, max_bounces=p["max_bounces"]))
+        stages["kernel"].append(t)
+        rgb, t = stage_ms(lambda: terminal_rgb(
+            scene, gl, pl, res, kw["background"], impl="kernel"))
+        stages["shading"].append(t)
+        bg = torch.tensor(kw["background"], dtype=torch.float32, device=dev)
+        _, t = stage_ms(lambda: torch.clamp_max(div_scalar(torch.where(
+            res.hit[:, None], rgb, bg[None, :]).reshape(h, w, 3), 255.0),
+            1.0))
+        stages["assemble"].append(t)
+        _, t = stage_ms(frame)
+        stages["render_whitted"].append(t)
+    breakdown = {k: {"min_ms": min(v), "median_ms": sorted(v)[len(v) // 2]}
+                 for k, v in stages.items()}
+    out = [{"phase": "whitted_host_breakdown", **card, "reps": REPS,
+            "frame": f"planets2 {w}x{h}/{p['max_bounces']}",
+            "stages": breakdown},
+           {"phase": "whitted_profiler", **card, "frames": 3,
+            **profile(frame)}]
+    s6, g6, p6, q = library.true_original_scene(device=dev)
+    imgs = []
+    for device in (dev, "cpu"):
+        o6, d6, h6, w6 = grid_rays(q["ray_count"], q["ray_step"],
+                                   q["multiple"], origin=q["camera_position"],
+                                   device=device)
+        imgs.append(render_whitted(
+            s6, g6, p6, o6, d6, h6, w6, max_bounces=q["max_bounces"],
+            background=q["background"]).cpu())
+    diff = (imgs[0] != imgs[1]).any(-1)
+    out.append({"phase": "whitted_card_vs_cpu", **card,
+                "frame": f"true_original {w6}x{h6}/{q['max_bounces']}",
+                "pixels_differ": int(diff.sum()),
+                "max_abs_diff": float((imgs[0] - imgs[1]).abs().max())})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_frame: no CUDA device", file=sys.stderr)
@@ -56,7 +155,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     card = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    scene, p = chandelier_scene(device=dev)
+    scene, _, _, p = chandelier_scene(device=dev)
     kw = dict(width=W, height=H, spp=SPP, max_bounces=BOUNCES,
               fov=p["fov"], camera_position=p["camera_position"],
               mirror_threshold=0.0, background=BG, device=dev)
@@ -102,29 +201,8 @@ def main():
     results = [{"phase": "host_breakdown", **card, "reps": REPS,
                 "stages": breakdown}]
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            frame()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    device_us = 0.0
-    for e in prof.key_averages():
-        self_dev = getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        if self_dev > 0:
-            rows.append({"name": e.key[:80], "calls": e.count,
-                         "self_device_ms": self_dev / 1e3})
-            device_us += self_dev
-    rows.sort(key=lambda r: -r["self_device_ms"])
     results.append({"phase": "profiler", **card, "frames": 3,
-                    "window_ms": window_ms, "device_busy_ms": device_us / 1e3,
-                    "device_idle_share": 1 - device_us / 1e3 / window_ms,
-                    "top": rows[:12]})
+                    **profile(frame)})
     # Card vs CPU on the pixel-centre frame.
     oc, dc = perspective_rays(W, H, fov=p["fov"],
                               origin=p["camera_position"], device=dev)
@@ -151,6 +229,7 @@ def main():
             {"ray": int(i), "card": rk[i].tolist(), "cpu": rh[i].tolist(),
              "dir": dh[i].tolist()}
             for i in torch.nonzero(diff).ravel()[:5]]})
+    results += whitted(dev, card)
     for r in results:
         print(json.dumps(r), flush=True)
     return 0

@@ -73,7 +73,7 @@ def test_assemble_equals_jax_op_by_op():
 
 
 def test_generator_draws_are_seeded():
-    scene, p = library.chandelier_scene(device="cpu")
+    scene, _, _, p = library.chandelier_scene(device="cpu")
     kw = dict(width=6, height=4, spp=2, max_bounces=3,
               camera_position=p["camera_position"], mirror_threshold=0.9,
               device="cpu")
@@ -96,7 +96,7 @@ def test_chandelier_800x600_fullres_golden():
     than 1000 divergent pixels (off by more than 1/255) and MSE over the
     agreeing pixels below 1e-8 (JAX float32 measured 311 and 5.8e-9,
     showcase/parity_fullres/parity.json)."""
-    scene, p = library.chandelier_scene(device="cpu")
+    scene, _, _, p = library.chandelier_scene(device="cpu")
     o, d = perspective_rays(800, 600, fov=60, origin=p["camera_position"],
                             device="cpu")
     rgb, _ = trace_path(scene, o, d, max_bounces=8, mirror_threshold=0.0,

@@ -38,7 +38,7 @@ def port_scene(jax_scene):
 
 def test_chandelier_table_equals_jax():
     js, _, _, jp = jax_library.chandelier_scene()
-    ts, tp = library.chandelier_scene(device="cpu")
+    ts, _, _, tp = library.chandelier_scene(device="cpu")
     want = jax_scene_numpy(js)
     got = scene_to_numpy(ts)
     assert set(got) == set(want)
@@ -52,7 +52,7 @@ def test_builder_and_numpy_round_trip():
     b = SceneBuilder()
     b.add_sphere((0.1, -0.2, 0.3), 0.7, (1, 2, 3), reflective=0.5,
                  transparent=0.25, emitive=1.0, ior=1.33, id=9)
-    s = b.build(device="cpu")
+    s, _, _ = b.build(device="cpu")
     assert s.num_spheres == 1 and s.id.dtype == torch.int32
     assert s.centre.dtype == torch.float32
     back = scene_from_numpy(scene_to_numpy(s), device="cpu")
@@ -108,7 +108,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         library.chandelier_scene()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         perspective_rays(4, 2)
-    scene, _ = library.chandelier_scene(device="cpu")
+    scene, _, _, _ = library.chandelier_scene(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         render_path(scene, width=4, height=2, spp=1,
                     generator=torch.Generator().manual_seed(0))

@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It builds the
-port's CUDA kernels with nvcc (all sources at once), then drives its two
+port's CUDA kernels with nvcc (all sources at once), then drives its three
 paths, each with the kernels' launch counts set to 0 just before and read
 just after:
 
@@ -10,7 +10,12 @@ just after:
   bounces, mirror_threshold=0.0, through ``render_path``;
 * the Whitted tracer: planets2 at 2001x2001, 10 bounces, and marbles4 at
   801x801, 8 bounces, through ``render_whitted`` (the whole-trace Whitted
-  kernel, and the nearest-hit kernel for the shadow sweeps).
+  kernel, and the nearest-hit kernel for the shadow sweeps);
+* the guided path tracer: the chandelier frame at 800x600, 8 spp, 8
+  bounces, mirror_threshold=0.9, fb_prob=1.0, guided by the shipped
+  distilled student (22->128->128->2, bf16), through ``render_path`` with
+  impl="kernel" (the student inside the path kernel) and impl="hybrid"
+  (the per-level kernel, the student between levels).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, times everything on the card's
@@ -28,9 +33,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.core import (cuda_intersect, cuda_path,
+from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted, native)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
+from raytracer_tpu_torch.fb.distill import DistilledGuide
+from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
+                                             model_path_for)
 from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
 from raytracer_tpu_torch.render.path_renderer import render_path
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
@@ -44,7 +52,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "showcase" / "parity_fullres" / "chandelier_800x600_ref.npy"
 WHITTED_GOLDEN = (ROOT / "showcase" / "parity_fullres" /
                   "true_original_601_ref.npy")
-SOURCES = ("path_trace", "whitted_trace", "nearest_hit")
+SOURCES = ("path_trace", "whitted_trace", "nearest_hit", "path_level")
 SEED = 0
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
@@ -82,6 +90,29 @@ NH_BYTES_OUT = 4 + 4 + 1          # t, idx, found
 # within rtol/atol 2e-4, at most 0.1% of pixels off by more than 1/255.
 W_RTOL = W_ATOL = 2e-4
 W_PIXELS_OFF = 1e-3
+# Guided path tracer (bench.py's guided cell): the student's width, the fb
+# gate, and the bounds the JAX package holds its guided TPU kernel to for a
+# dense student (tests/test_pallas_path.py:149-181): at least 90% of samples
+# equal, light hits within 0.9-1.12x.
+G_THRESHOLD = 0.9
+G_FB_PROB = 1.0
+G_WIDTH = 128
+G_MIN_EQUAL = 0.9
+G_HITS = (0.9, 1.12)
+# Published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
+# least time for the student's flops.
+PEAK_BF16 = 989e12
+STUDENT_FLOPS = 2 * (22 * 128 + 128 * 128 + 128 * 2)   # a guided ray-level
+# Bytes of the guided kernel beyond the unguided one: six counts out, not
+# four; the fb uniform of every guided ray-level in (at fb_prob=1 every
+# diffuse ray-level is guided and reads no cosine uniforms).
+G_BYTES_PER_RAY = 24 + 12 + 24
+G_BYTES_FB = 4
+# Bytes of csrc/path_level.cu a ray-level: o, d and running in; state, rec,
+# o_next, d_next and the hit plane out; the uniforms of a diffuse lane in.
+LVL_BYTES_PER_RAY = 12 + 12 + 1 + 1 + 24 + 12 + 12
+LVL_BYTES_HIT = 44
+LVL_BYTES_U = 8
 
 
 class PhaseError(RuntimeError):
@@ -140,6 +171,7 @@ def reset_counts():
     cuda_path.path_trace.launches = 0
     cuda_whitted.whitted_trace.launches = 0
     cuda_intersect.nearest_hit.launches = 0
+    cuda_level.path_level.launches = 0
 
 
 def read_counts():
@@ -374,6 +406,312 @@ def whitted_phases(dev, card):
          "bound_by": nh_by, "library_ms": None}]
 
 
+def student_params(kind, width=G_WIDTH, seed=SEED):
+    """A 22->width->width->2 student: ``"one_hot"`` (px, py, pz and nx
+    through the hidden layers to a0 = px, a1 = -nx; any summation order
+    gives the same floats) or ``"random"`` (seeded dense weights)."""
+    dims = (22, width, width, 2)
+    if kind == "random":
+        rng = np.random.RandomState(seed)
+        return {f"Dense_{i}": {
+            "kernel": (rng.randn(a, b) / np.sqrt(a)).astype(np.float32),
+            "bias": (rng.randn(b) * 0.1).astype(np.float32)}
+            for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))}
+    k0 = np.zeros((22, width), np.float32)
+    for j, c in enumerate((0, 1, 2, 6)):
+        k0[c, j] = 1.0
+    k2 = np.zeros((width, 2), np.float32)
+    k2[0, 0], k2[3, 1] = 1.0, -1.0
+    return {"Dense_0": {"kernel": k0, "bias": np.zeros(width, np.float32)},
+            "Dense_1": {"kernel": np.eye(width, dtype=np.float32),
+                        "bias": np.zeros(width, np.float32)},
+            "Dense_2": {"kernel": k2, "bias": np.zeros(2, np.float32)}}
+
+
+def hits_close(a, b):
+    """``a`` within the guided bounds of ``b`` (equal when ``b`` is 0)."""
+    return a == b if b == 0 else G_HITS[0] <= a / b <= G_HITS[1]
+
+
+def compare_guided(rgb_a, st_a, rgb_b, st_b, exact):
+    """Samples ``[R, 3]`` and stats of two guided traces: bit for bit when
+    ``exact``, else the guided bounds.  Returns ``(ok, report)``."""
+    equal = bool(torch.equal(rgb_a, rgb_b)) and st_a == st_b
+    frac = float((rgb_a == rgb_b).all(-1).float().mean())
+    ok = bool(torch.isfinite(rgb_a).all()) and (equal or (
+        not exact and frac >= G_MIN_EQUAL
+        and hits_close(st_a["light_hits"], st_b["light_hits"])
+        and hits_close(st_a["small_light_hits"], st_b["small_light_hits"])))
+    return ok, {"bit_equal": equal, "samples_equal_fraction": frac,
+                "max_abs_err": float((rgb_a - rgb_b).abs().max()),
+                "stats": st_a, "stats_reference": st_b}
+
+
+def guided_phases(dev, card, scene, params, libs):
+    """The guided path's phases; returns its two ``kernels`` entries."""
+    emit({"phase": "guided_build", "libraries": {
+        n: {"library": str(libs[n].path.relative_to(ROOT)),
+            "nvcc_seconds": libs[n].build_seconds,
+            "ptxas": [ln.strip() for ln in libs[n].build_log.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+        for n in ("path_trace", "path_level")}})
+    gen = torch.Generator(dev).manual_seed(SEED + 10)
+    jitter = torch.rand((SPP, H, W, 2), device=dev, generator=gen)
+    o, d = perspective_rays(W, H, fov=params["fov"],
+                            origin=params["camera_position"],
+                            sample_xy=jitter)
+    o = o.contiguous()
+    R = o.shape[0]
+    u = torch.rand((BOUNCES, R, 2), device=dev, generator=gen)
+    f = torch.rand((BOUNCES, R), device=dev, generator=gen)
+    tkw = dict(max_bounces=BOUNCES, mirror_threshold=G_THRESHOLD,
+               background=BG, uniforms=u, fb_uniforms=f, fb_prob=G_FB_PROB)
+
+    def trace(impl, guide):
+        rgb, st = trace_path(scene, o, d, impl=impl, guide_fn=guide, **tkw)
+        torch.cuda.synchronize()
+        return rgb, st.as_dict()
+
+    # guided_one_hot: kernel vs plain with a one-hot and a seeded random
+    # 22->128->128->2 student, f32 and bf16.
+    t0 = time.perf_counter()
+    for kind in ("one_hot", "random"):
+        for dtype in (None, "auto"):
+            guide = DistilledGuide(student_params(kind), (G_WIDTH, G_WIDTH)
+                                   ).as_guide_fn(dtype=dtype)
+            rk, sk = trace("kernel", guide)
+            rp, sp = trace("plain", guide)
+            ok, rep = compare_guided(rk, sk, rp, sp, exact=kind == "one_hot")
+            emit({"phase": "guided_one_hot", "student": kind,
+                  "dtype": "bfloat16" if dtype else "float32",
+                  "frame": f"{W}x{H}@{SPP}spp/{BOUNCES}", **rep,
+                  "seconds": time.perf_counter() - t0})
+            check(ok, f"guided kernel vs plain, {kind} student, {dtype}: "
+                  f"{rep}")
+            check(sk["fb_used"] > 0, f"{kind} student: no guided bounce")
+
+    # guided_main: the shipped student through render_path, kernel then
+    # plain then hybrid on the same draws.
+    t0 = time.perf_counter()
+    guide = guide_for("chandelier", W, H, STUDENTS_DIR)
+    check(guide is not None, f"no shipped student in {STUDENTS_DIR}")
+    fkw = dict(width=W, height=H, spp=SPP, max_bounces=BOUNCES,
+               fov=params["fov"], camera_position=params["camera_position"],
+               mirror_threshold=G_THRESHOLD, background=BG, device=dev,
+               guide_fn=guide, fb_prob=G_FB_PROB)
+    frames, launches = {}, {}
+    for impl in ("kernel", "plain", "hybrid"):
+        reset_counts()
+        img, st = render_path(
+            scene, impl=impl,
+            generator=torch.Generator(dev).manual_seed(SEED + 11), **fkw)
+        torch.cuda.synchronize()
+        launches[impl] = {"path_trace": cuda_path.path_trace.launches,
+                          "path_level": cuda_level.path_level.launches}
+        frames[impl] = (img, st.as_dict())
+    img_k, sk = frames["kernel"]
+    check(launches["kernel"]["path_trace"] >= 1,
+          "the guided path launched no path_trace kernel")
+    check(launches["hybrid"]["path_level"] >= BOUNCES,
+          "the hybrid launched too few path_level kernels")
+    check(tuple(img_k.shape) == (H, W, 3) and bool(torch.isfinite(img_k)
+                                                   .all()),
+          f"guided image {tuple(img_k.shape)} not finite")
+    check(sk["fb_used"] > 0 and sk["fb_success"] > 0,
+          f"guided stats {sk}: no guided bounce found a light")
+    main_ok, main_rep = {}, {}
+    for impl in ("plain", "hybrid"):
+        img, st = frames[impl]
+        pix = float((img_k == img).all(-1).float().mean())
+        main_ok[impl] = (bool(torch.equal(img_k, img)) and sk == st) or (
+            pix >= G_MIN_EQUAL and hits_close(sk["light_hits"],
+                                              st["light_hits"])
+            and hits_close(sk["small_light_hits"], st["small_light_hits"]))
+        main_rep[impl] = {"bit_equal": bool(torch.equal(img_k, img))
+                          and sk == st, "pixels_equal_fraction": pix,
+                          "stats": st}
+    emit({"phase": "guided_main", "frame": f"{W}x{H}@{SPP}spp/{BOUNCES}",
+          "student": "fb_chandelier_distilled.npz (bf16)",
+          "launches": launches, "stats_kernel": sk,
+          "plain_vs_kernel": main_rep["plain"],
+          "hybrid_vs_kernel": main_rep["hybrid"],
+          "seconds": time.perf_counter() - t0})
+    for impl in ("plain", "hybrid"):
+        check(main_ok[impl], f"guided frame, kernel vs {impl}: "
+              f"{main_rep[impl]}")
+
+    # guided_hits: small-light hits, guided over traditional, both shipped
+    # chandelier students, at bench.py's two guided shapes.
+    t0 = time.perf_counter()
+    hits = []
+    for w, h in ((200, 100), (W, H)):
+        hkw = dict(width=w, height=h, spp=SPP, max_bounces=BOUNCES,
+                   fov=params["fov"], camera_position=params["camera_position"],
+                   background=BG, device=dev)
+        _, st_t = render_path(
+            scene, mirror_threshold=0.0,
+            generator=torch.Generator(dev).manual_seed(SEED + 12), **hkw)
+        trad = int(st_t.small_light_hits)
+        for name in ("fb_chandelier_distilled.npz",
+                     "fb_chandelier_distilled_2to1.npz"):
+            g = DistilledGuide.load(STUDENTS_DIR / name).as_guide_fn()
+            _, st_g = render_path(
+                scene, mirror_threshold=G_THRESHOLD, guide_fn=g,
+                fb_prob=G_FB_PROB,
+                generator=torch.Generator(dev).manual_seed(SEED + 12), **hkw)
+            hits.append({"frame": f"{w}x{h}@{SPP}spp/{BOUNCES}",
+                         "student": name,
+                         "registry_pick": name == Path(model_path_for(
+                             "chandelier", w, h, STUDENTS_DIR)).name,
+                         "small_light_hits_guided":
+                             int(st_g.small_light_hits),
+                         "small_light_hits_traditional": trad,
+                         "small_light_improvement":
+                             int(st_g.small_light_hits) / max(trad, 1),
+                         "fb_used": int(st_g.fb_used),
+                         "fb_success": int(st_g.fb_success)})
+            check(trad > 0 and int(st_g.small_light_hits) > 0,
+                  f"guided_hits: no small-light hit ({hits[-1]})")
+    emit({"phase": "guided_hits", "cells": hits,
+          "seconds": time.perf_counter() - t0})
+
+    # level_kernel: every level of a guided hybrid trace through the level
+    # kernel and its plain version on the same inputs, bit for bit; then
+    # the hybrid trace against the whole-trace kernel.
+    t0 = time.perf_counter()
+    kernel_level = cuda_level.path_level
+    recorded, level_equal, level_err = [], [], [0.0]
+
+    def checked_level(lo, ld, lrun, lu, ltable, **kw):
+        a = kernel_level(lo, ld, lrun, lu, ltable, **kw)
+        b = cuda_level.path_level_plain(lo, ld, lrun, lu, ltable, **kw)
+        level_equal.append(all(
+            (x is None and y is None) or bool(torch.equal(x, y))
+            for x, y in zip(a, b)))
+        level_err[0] = max([level_err[0]] + [
+            float((x - y).abs().max()) for x, y in zip(a[1:], b[1:])
+            if x is not None])
+        recorded.append(((lo, ld, lrun, lu, ltable), kw, a.state))
+        return a
+
+    # While it stands in for the wrapper, the wrapper's launches land on
+    # checked_level.launches: launches made to compare do not count.
+    checked_level.launches = 0
+    cuda_level.path_level = checked_level
+    try:
+        rh, sh = trace("hybrid", guide)
+    finally:
+        cuda_level.path_level = kernel_level
+    rk, sk = trace("kernel", guide)
+    ok_h, rep_h = compare_guided(rh, sh, rk, sk, exact=False)
+    one_hot = DistilledGuide(student_params("one_hot"), (G_WIDTH, G_WIDTH)
+                             ).as_guide_fn()
+    rh1, sh1 = trace("hybrid", one_hot)
+    rk1, sk1 = trace("kernel", one_hot)
+    ok_h1, rep_h1 = compare_guided(rh1, sh1, rk1, sk1, exact=True)
+    emit({"phase": "level_kernel", "levels": len(level_equal),
+          "levels_bit_equal": level_equal,
+          "hybrid_vs_kernel_shipped": rep_h,
+          "hybrid_vs_kernel_one_hot": rep_h1,
+          "seconds": time.perf_counter() - t0})
+    check(len(level_equal) == BOUNCES and all(level_equal),
+          f"path_level kernel vs plain differ: {level_equal}")
+    check(ok_h and ok_h1, f"hybrid vs whole-trace kernel: {rep_h}, {rep_h1}")
+
+    # guided_times: both kernels at the guided frame's shapes on the card's
+    # clock, their bounds from this run's data, the frames' wall times.
+    t0 = time.perf_counter()
+    table = cuda_path.path_table(scene_spec(scene), emissive_indices(scene),
+                                 G_THRESHOLD, dev)
+    gkw = dict(max_bounces=BOUNCES, background=BG, guide=guide,
+               fb_uniforms=f, fb_prob=G_FB_PROB)
+    _, cnt = cuda_path.path_trace(o, d, u, table, **gkw)
+    for _ in range(2):
+        cuda_path.path_trace(o, d, u, table, **gkw)
+    g_ms = cuda_ms(lambda: cuda_path.path_trace(o, d, u, table, **gkw), 5)
+    g_plain_ms = cuda_ms(lambda: cuda_path.path_trace_plain(
+        o, d, u, table, **gkw), 1)
+    n_sph, n_em = len(table.spec), len(table.emissive_idx)
+    _, _, f32_ops, _ = bound_ms(cnt, n_sph, n_em, BOUNCES, R)
+    fb_used = int(cnt[:, 4].sum(dtype=torch.int64))
+    mlp_flops = STUDENT_FLOPS * fb_used
+    g_bytes = G_BYTES_PER_RAY * R + G_BYTES_FB * fb_used
+    t_ops = f32_ops / PEAK_F32 * 1e3 + mlp_flops / PEAK_BF16 * 1e3
+    t_bytes = g_bytes / PEAK_BYTES * 1e3
+    g_bound = max(t_ops, t_bytes)
+    g_by = "operations" if t_ops >= t_bytes else "bytes"
+
+    def level_frame():
+        for args, kw, _ in recorded:
+            kernel_level(*args, **kw)
+
+    level_frame()
+    l_ms = cuda_ms(level_frame, 5)
+    l_plain_ms = cuda_ms(lambda: [cuda_level.path_level_plain(*a, **kw)
+                                  for a, kw, _ in recorded], 1)
+    l_ops = l_bytes = 0
+    for (lo, ld, lrun, lu, _), kw, st in recorded:
+        running = int(lrun.sum())
+        cont = int(((st & cuda_level.ST_CONT) != 0).sum())
+        diffuse = int((((st & cuda_level.ST_CONT) != 0)
+                       & ((st & cuda_level.ST_MIRROR) == 0)).sum())
+        l_ops += (OPS_SWEEP_PER_SPHERE * n_sph * running
+                  + (OPS_DIRECT_PER_LIGHT * n_em + OPS_CONTINUE_FIXED)
+                  * cont)
+        l_bytes += ((LVL_BYTES_PER_RAY
+                     + (LVL_BYTES_HIT if kw.get("want_hit") else 0))
+                    * lo.shape[0] + LVL_BYTES_U * diffuse)
+    l_bound, l_by = bound(l_ops, l_bytes)
+    walls = {}
+    for impl in ("kernel", "hybrid"):
+        walls[impl] = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            render_path(scene, impl=impl,
+                        generator=torch.Generator(dev).manual_seed(SEED + 11),
+                        **fkw)
+            torch.cuda.synchronize()
+            walls[impl].append((time.perf_counter() - t1) * 1e3)
+    emit({"phase": "guided_times", **card,
+          "frame": f"{W}x{H}@{SPP}spp/{BOUNCES} guided", "rays": R,
+          "path_trace_guided_ms": g_ms,
+          "path_trace_guided_plain_ms": g_plain_ms,
+          "path_trace_guided_bound_ms": g_bound,
+          "path_trace_guided_bound_by": g_by,
+          "path_trace_guided_bound_f32_ops": f32_ops,
+          "path_trace_guided_bound_mlp_flops": mlp_flops,
+          "path_trace_guided_bound_bytes": g_bytes,
+          "path_trace_guided_bound_share": g_bound / g_ms,
+          "guided_ray_levels": fb_used,
+          "path_level_ms_per_frame": l_ms, "path_level_launches": len(recorded),
+          "path_level_plain_ms_per_frame": l_plain_ms,
+          "path_level_bound_ms": l_bound, "path_level_bound_by": l_by,
+          "path_level_bound_ops": l_ops, "path_level_bound_bytes": l_bytes,
+          "path_level_bound_share": l_bound / l_ms,
+          "render_path_kernel_wall_ms": walls["kernel"],
+          "render_path_hybrid_wall_ms": walls["hybrid"],
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes either function",
+          "seconds": time.perf_counter() - t0})
+
+    return [
+        {"name": "path_trace_guided", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/path_trace.cu",
+         "replaces": "raytracer_tpu/core/pallas_path.py:142",
+         "launches": launches["kernel"]["path_trace"],
+         "max_abs_err": float((frames["kernel"][0]
+                               - frames["plain"][0]).abs().max()),
+         "ms": g_ms, "plain_ms": g_plain_ms, "bound_ms": g_bound,
+         "bound_by": g_by, "library_ms": None},
+        {"name": "path_level", "route": "cuda",
+         "source": "raytracer_tpu_torch/csrc/path_level.cu",
+         "replaces": "raytracer_tpu/core/pallas_path.py:562",
+         "launches": launches["hybrid"]["path_level"],
+         "max_abs_err": level_err[0],
+         "ms": l_ms, "plain_ms": l_plain_ms, "bound_ms": l_bound,
+         "bound_by": l_by, "library_ms": None}]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -412,7 +750,7 @@ def main():
             "nvcc_seconds": libs[n].build_seconds,
             "ptxas": [ln.strip() for ln in libs[n].build_log.splitlines()
                       if "registers" in ln or "spill" in ln]}
-        for n in SOURCES[1:]}})
+        for n in ("whitted_trace", "nearest_hit")}})
 
     # 3. Main path: render_path through the kernel, then the plain version
     #    on the same draws (same seed).
@@ -566,6 +904,7 @@ def main():
           "seconds": time.perf_counter() - t0})
 
     whitted_kernels = whitted_phases(dev, card)
+    guided_kernels = guided_phases(dev, card, scene, params, libs)
 
     emit({"kernels": [{
         "name": "path_trace", "route": "cuda",
@@ -573,7 +912,7 @@ def main():
         "replaces": "raytracer_tpu/core/pallas_path.py:213",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-        "library_ms": None}] + whitted_kernels})
+        "library_ms": None}] + whitted_kernels + guided_kernels})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """Whole-trace path kernel: wrapper, launch count and plain version.
 
-Replaces ``raytracer_tpu/core/pallas_path.py::_kernel`` (unguided branch,
-reached through ``trace_path_pallas_impl``).  The CUDA kernel is
-``csrc/path_trace.cu``; its note says what bounds it on an H100 and what
-its design does about that.
+Replaces ``raytracer_tpu/core/pallas_path.py::_kernel``, unguided and
+guided (reached through ``trace_path_pallas_impl``; the guided branch runs
+the distilled student inside the kernel, ``_student_mlp``).  The CUDA
+kernel is ``csrc/path_trace.cu``; its note says what bounds it on an H100
+and what its design does about that.
 
 ``path_trace`` launches the kernel for CUDA tensors and raises on anything
 it does not take; for CPU tensors, and only for them, it runs
@@ -12,39 +13,51 @@ of ``raytracer_tpu/trace/path.py::_trace_path_lean_impl``.  Both take
 unnormalised directions and normalise them first, and both return
 ``rgb [R, 3]`` float32 (integer-valued) and per-ray counts ``[R, 4]``
 int32: levels running (plus one for a ray still running after the last
-level, as the reference counts it), hits, emissive hits, small-light hits.
+level, as the reference counts it), hits, emissive hits, small-light hits;
+guided, ``[R, 6]`` with the guided bounces and, for a ray that ended on a
+light, its guided bounces again (``fb_success``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Sequence
+import weakref
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from . import native, vec
 from .intersect import nearest_hit_c
-from ..trace.path import _direct_lighting_c
-from ..trace.sampling import local_to_world_c
+from ..trace.path import _direct_lighting_c, is_student, observation_c
+from ..trace.sampling import fb_action_to_direction_c, local_to_world_c
 
-# Compile-time capacities of csrc/path_trace.cu (kMaxSpheres, kMaxEmissive,
-# kMaxBounces): the wrapper raises above them.
+# Compile-time capacities of csrc/path_common.cuh and path_trace.cu
+# (kMaxSpheres, kMaxEmissive, kMaxBounces) and csrc/student.cuh
+# (kMaxWidth, at most two hidden layers): the wrappers raise above them.
 MAX_SPHERES = 64
 MAX_EMISSIVE = 64
 MAX_BOUNCES = 16
+MAX_STUDENT_WIDTH = 128
+MAX_STUDENT_HIDDEN = 2
+OBS_DIM, ACTION_DIM = 22, 2
 FLAG_EMISSIVE, FLAG_SMALL, FLAG_MIRROR = 1, 2, 4
 SMALL_LIGHT_RADIUS = 0.5    # small light: emissive with radius < 0.5
+# Level state bits (csrc/path_level.cu).
+ST_RUNNING, ST_FOUND, ST_EMISSIVE, ST_SMALL, ST_MIRROR, ST_CONT = (
+    1, 2, 4, 8, 16, 32)
 
 
 @dataclasses.dataclass(frozen=True)
 class PathTable:
-    """The scene as the path kernel reads it.
+    """The scene as the path kernels read it.
 
     ``spec``: ``scene_spec`` rows (Python floats, exact float32 values);
-    ``spheres [N, 7]`` float32 ``cx cy cz r colr colg colb``; ``flags [N]``
-    int32 bits (emissive, small light, mirror at ``mirror_threshold``);
-    ``emissive [E]`` int32 indices of the emissive spheres, ascending."""
+    ``spheres [N, 12]`` float32 ``cx cy cz r colr colg colb refl transp
+    emit ior id`` (the material columns feed the guide's observation);
+    ``flags [N]`` int32 bits (emissive, small light, mirror at
+    ``mirror_threshold``); ``emissive [E]`` int32 indices of the emissive
+    spheres, ascending."""
     spec: tuple
     emissive_idx: tuple
     mirror_threshold: float
@@ -69,14 +82,15 @@ def path_table(spec: Sequence[tuple], emissive_idx: Sequence[int],
              for e, s, m in zip(em, sm, mr)]
     return PathTable(
         spec, tuple(emissive_idx), float(mirror_threshold),
-        spheres=torch.tensor([row[:7] for row in spec], dtype=torch.float32,
-                             device=device).reshape(len(spec), 7),
+        spheres=torch.tensor([row[:12] for row in spec], dtype=torch.float32,
+                             device=device).reshape(len(spec), 12),
         flags=torch.tensor(flags, dtype=torch.int32, device=device),
         emissive=torch.tensor(emissive_idx, dtype=torch.int32,
                               device=device))
 
 
-def _check(origins, dirs, uniforms, table, max_bounces):
+def check_rays(origins, dirs, table):
+    """The checks every path wrapper makes on rays and table."""
     for name, t in (("origins", origins), ("dirs", dirs)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
             raise TypeError(f"{name} must be a float32 tensor")
@@ -87,17 +101,6 @@ def _check(origins, dirs, uniforms, table, max_bounces):
     dev = origins.device
     if dirs.shape[0] != R or dirs.device != dev:
         raise ValueError("dirs must match origins in length and device")
-    if not 1 <= max_bounces <= MAX_BOUNCES:
-        raise ValueError(f"max_bounces must be in [1, {MAX_BOUNCES}], "
-                         f"got {max_bounces}")
-    if uniforms is not None:
-        if uniforms.dtype != torch.float32 or uniforms.device != dev:
-            raise TypeError("uniforms must be float32 on the rays' device")
-        if (tuple(uniforms.shape) != (max_bounces, R, 2)
-                or not uniforms.is_contiguous()):
-            raise ValueError(f"uniforms must be a contiguous "
-                             f"[{max_bounces}, {R}, 2] tensor, got "
-                             f"{tuple(uniforms.shape)}")
     n, e = len(table.spec), len(table.emissive_idx)
     if not 1 <= n <= MAX_SPHERES or e > MAX_EMISSIVE:
         raise ValueError(f"scene has {n} spheres / {e} emissive; the kernel "
@@ -107,37 +110,129 @@ def _check(origins, dirs, uniforms, table, max_bounces):
             raise ValueError("scene table must be on the rays' device")
 
 
+def check_plane(name, t, shape, dtype, dev):
+    if t.dtype != dtype or t.device != dev:
+        raise TypeError(f"{name} must be {dtype} on the rays' device")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {list(shape)} tensor, "
+                         f"got {tuple(t.shape)}")
+
+
+def _check(origins, dirs, uniforms, table, max_bounces, guide, fb_uniforms):
+    check_rays(origins, dirs, table)
+    R, dev = origins.shape[0], origins.device
+    if not 1 <= max_bounces <= MAX_BOUNCES:
+        raise ValueError(f"max_bounces must be in [1, {MAX_BOUNCES}], "
+                         f"got {max_bounces}")
+    if uniforms is not None:
+        check_plane("uniforms", uniforms, (max_bounces, R, 2), torch.float32,
+                    dev)
+    if guide is not None:
+        student_dims(guide)
+        if uniforms is None:
+            raise ValueError("a guided trace needs the uniforms")
+        if fb_uniforms is None:
+            raise ValueError("a guided trace needs fb_uniforms "
+                             f"[{max_bounces}, {R}]")
+        check_plane("fb_uniforms", fb_uniforms, (max_bounces, R),
+                    torch.float32, dev)
+
+
+def student_dims(guide):
+    """``(n_hidden, h1, h2)`` of a student the kernel takes (widths padded
+    to multiples of 8); raises ValueError for anything else."""
+    if not is_student(guide):
+        raise ValueError("the path kernels take distilled-student guides "
+                         "only (fb.distill.DistilledGuide.as_guide_fn)")
+    if guide.dtype not in ("bfloat16", None):
+        raise ValueError(f"student dtype {guide.dtype!r}: the kernel takes "
+                         "bfloat16 or f32 (None)")
+    layers = guide.layers
+    hidden = [k.shape[1] for k, _ in layers[:-1]]
+    if (not 1 <= len(hidden) <= MAX_STUDENT_HIDDEN
+            or layers[0][0].shape[0] != OBS_DIM
+            or layers[-1][0].shape[1] != ACTION_DIM
+            or any(not 1 <= h <= MAX_STUDENT_WIDTH for h in hidden)):
+        raise ValueError(
+            f"student {OBS_DIM}->{'->'.join(map(str, hidden))}->"
+            f"{layers[-1][0].shape[1]} from {layers[0][0].shape[0]} inputs: "
+            f"the kernel takes {OBS_DIM} inputs, {ACTION_DIM} outputs and "
+            f"1..{MAX_STUDENT_HIDDEN} hidden layers of at most "
+            f"{MAX_STUDENT_WIDTH} units")
+    pad = [-(-h // 8) * 8 for h in hidden]
+    return len(hidden), pad[0], pad[1] if len(pad) == 2 else 0
+
+
+_PACKED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def pack_student(guide, device) -> torch.Tensor:
+    """The student in ``csrc/student.cuh``'s layout, float32 on ``device``
+    (cached per guide and device): each layer's kernel ``[in, out]`` with
+    ``out`` padded by zero units to a multiple of 8 (the output layer to 8)
+    and ``in`` to the previous layer's padded width, then its bias."""
+    per_dev = _PACKED.setdefault(guide, {})
+    device = torch.device(device)
+    if device not in per_dev:
+        n_hidden, h1, h2 = student_dims(guide)
+        outs = [h1, h2][:n_hidden] + [8]
+        parts, rows = [], OBS_DIM
+        for (k, b), out in zip(guide.layers, outs):
+            kp = torch.zeros((rows, out), dtype=torch.float32)
+            kp[:k.shape[0], :k.shape[1]] = k
+            bp = torch.zeros(out, dtype=torch.float32)
+            bp[:b.shape[0]] = b
+            parts += [kp.reshape(-1), bp]
+            rows = out
+        per_dev[device] = torch.cat(parts).to(device)
+    return per_dev[device]
+
+
 def path_trace(origins: torch.Tensor, dirs: torch.Tensor,
                uniforms: Optional[torch.Tensor], table: PathTable, *,
                max_bounces: int, background: Sequence[float],
-               fast: bool = False):
+               fast: bool = False, guide=None,
+               fb_uniforms: Optional[torch.Tensor] = None,
+               fb_prob: float = 1.0):
     """The path kernel on CUDA tensors; the plain version on CPU tensors.
 
     ``uniforms``: ``[max_bounces, R, 2]`` float32, or None when no diffuse
     bounce is possible (a diffuse lane then reflects, as in the JAX
-    tracers).  Returns ``(rgb [R, 3] float32, counts [R, 4] int32)``."""
-    _check(origins, dirs, uniforms, table, max_bounces)
+    tracers).  ``guide``: a distilled student (``StudentGuide``, at most
+    two hidden layers of at most 128 units), with ``fb_uniforms
+    [max_bounces, R]`` float32 and ``fb_prob``.  Returns ``(rgb [R, 3]
+    float32, counts [R, 4] int32)``, guided ``[R, 6]``."""
+    _check(origins, dirs, uniforms, table, max_bounces, guide, fb_uniforms)
     dev = origins.device
+    kw = dict(max_bounces=max_bounces, background=background, fast=fast,
+              guide=guide, fb_uniforms=fb_uniforms, fb_prob=fb_prob)
     if dev.type == "cpu":
-        return path_trace_plain(origins, dirs, uniforms, table,
-                                max_bounces=max_bounces,
-                                background=background, fast=fast)
+        return path_trace_plain(origins, dirs, uniforms, table, **kw)
     if dev.type != "cuda":
         raise ValueError(f"path_trace runs on cuda or cpu, not {dev}")
     lib = _library()
     R = origins.shape[0]
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    counts = torch.empty((R, 4), dtype=torch.int32, device=dev)
+    counts = torch.empty((R, 6 if guide is not None else 4),
+                         dtype=torch.int32, device=dev)
     bg = [float(b) for b in background]
+    if guide is not None:
+        n_hidden, h1, h2 = student_dims(guide)
+        packed = pack_student(guide, dev)
+        sargs = (packed.data_ptr(), n_hidden, h1, h2,
+                 int(guide.dtype == "bfloat16"))
+    else:
+        sargs = (None, 0, 0, 0, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.path_trace_launch(
             origins.data_ptr(), dirs.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
-            table.spheres.data_ptr(), table.flags.data_ptr(),
+            None if fb_uniforms is None else fb_uniforms.data_ptr(),
+            float(fb_prob), table.spheres.data_ptr(), table.flags.data_ptr(),
             table.emissive.data_ptr(), len(table.spec),
             len(table.emissive_idx), R, max_bounces, bg[0], bg[1], bg[2],
-            int(fast), rgb.data_ptr(), counts.data_ptr(), stream)
+            int(fast), *sargs, rgb.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"path_trace kernel launch failed: CUDA error "
                            f"{err}")
@@ -154,86 +249,167 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, ctypes.c_longlong, i,
-                       f, f, f, i, p, p, p]
+        fn.argtypes = [p, p, p, p, f, p, p, p, i, i, ctypes.c_longlong, i,
+                       f, f, f, i, p, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+class Level(NamedTuple):
+    """One bounce level, every lane (``csrc/path_level.cu``'s outputs).
+    ``state [R]`` uint8 bits (``ST_*``); ``rec [R, 6]`` albedo (found
+    lanes) and direct light (continuing lanes); ``o_next``/``d_next [R,
+    3]``: the offset origin and the mirror or cosine direction on
+    continuing lanes, the input ray elsewhere; ``hit [R, 11]`` or None:
+    point, normal, reflective, transparent, emitive, ior and id on
+    continuing lanes.  Zeros where unset."""
+    state: torch.Tensor
+    rec: torch.Tensor
+    o_next: torch.Tensor
+    d_next: torch.Tensor
+    hit: Optional[torch.Tensor]
+
+
+def level_plain(o: torch.Tensor, d: torch.Tensor, running: torch.Tensor,
+                u: Optional[torch.Tensor], table: PathTable, *,
+                fast: bool = False, want_hit: bool = False) -> Level:
+    """One bounce level in plain PyTorch, the lean tracer's op order (and
+    ``csrc/path_common.cuh``'s): sweep, direct light, reflection, cosine
+    bounce from ``u [R, 2]`` (None: none possible), offset origin.  ``d``:
+    unit directions; ``running [R]`` bool."""
+    ox, oy, oz, dx, dy, dz = o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], \
+        d[:, 2]
+    rows = table.spec
+    em_flags, sm_flags, mr_flags = _flag_lists(rows, table.mirror_threshold)
+    extra_vals = [([row[c] for row in rows], False) for c in range(4, 7)] + [
+        (em_flags, True), (sm_flags, True), (mr_flags, True)] + [
+        ([float(row[c]) for row in rows], False) for c in range(7, 12)]
+    h = nearest_hit_c(ox, oy, oz, dx, dy, dz, rows, extra_vals, fast=fast)
+    px, py, pz, nx, ny, nz = h.px, h.py, h.pz, h.nx, h.ny, h.nz
+    ar, ag, ab, em, sm, mr = h.extras[:6]
+    found = running & h.found
+    emis = found & em
+    mirror = found & ~emis & mr
+    cont = mirror | (found & ~emis & ~mirror)
+
+    dr, dg, db = _direct_lighting_c(rows, table.emissive_idx, px, py, pz,
+                                    nx, ny, nz, h.idx, fast)
+    rlx, rly, rlz = vec.reflect_c(dx, dy, dz, nx, ny, nz)
+    if u is None:
+        dfx, dfy, dfz = rlx, rly, rlz
+    else:
+        theta = torch.acos(vec.sqrt(u[:, 0]))
+        phi = 2.0 * math.pi * u[:, 1]
+        dfx, dfy, dfz = local_to_world_c(theta, phi, nx, ny, nz)
+    o_next = torch.stack([torch.where(cont, p + n * 0.001, c) for p, n, c in
+                          ((px, nx, ox), (py, ny, oy), (pz, nz, oz))], -1)
+    d_next = torch.stack([torch.where(cont, torch.where(mirror, r, f), c)
+                          for r, f, c in ((rlx, dfx, dx), (rly, dfy, dy),
+                                          (rlz, dfz, dz))], -1)
+    state = (running * ST_RUNNING + found * ST_FOUND + emis * ST_EMISSIVE
+             + (found & sm) * ST_SMALL + mirror * ST_MIRROR
+             + cont * ST_CONT).to(torch.uint8)
+    rec = torch.stack([torch.where(found, c, 0.0) for c in (ar, ag, ab)]
+                      + [torch.where(cont, c, 0.0) for c in (dr, dg, db)], -1)
+    hit = None
+    if want_hit:
+        hit = torch.stack([torch.where(cont, c, 0.0) for c in
+                           (px, py, pz, nx, ny, nz, *h.extras[6:])], -1)
+    return Level(state, rec, o_next, d_next, hit)
+
+
+def fold_levels(levels, background) -> torch.Tensor:
+    """The reverse fold, deepest level first, over ``(state, rec)`` pairs:
+    ``trunc(albedo · min(255, direct + child) / 255)`` on continuing
+    lanes, the light's colour on emissive ones, the background on a miss.
+    Returns ``rgb [R, 3]``."""
+    bg = [float(b) for b in background]
+    state = levels[0][0]
+    v = [torch.full(state.shape, b, dtype=torch.float32,
+                    device=state.device) for b in bg]
+    for st, rec in reversed(levels):
+        emis = (st & ST_EMISSIVE) != 0
+        cont = (st & ST_CONT) != 0
+        miss = ((st & ST_RUNNING) != 0) & ~emis & ~cont
+        for c in range(3):
+            a, dl = rec[:, c], rec[:, 3 + c]
+            comb = torch.trunc(vec.div_scalar(
+                a * torch.clamp_max(dl + v[c], 255.0), 255.0))
+            v[c] = torch.where(cont, comb, v[c])
+            v[c] = torch.where(emis, a, v[c])
+            v[c] = torch.where(miss, bg[c], v[c])
+    return torch.stack(v, dim=-1)
+
+
+def trace_levels(level_fn, origins: torch.Tensor, dirs: torch.Tensor,
+                 uniforms: Optional[torch.Tensor], table: PathTable, *,
+                 max_bounces: int, background: Sequence[float],
+                 fast: bool = False, guide=None,
+                 fb_uniforms: Optional[torch.Tensor] = None,
+                 fb_prob: float = 1.0):
+    """The tracer as a loop of ``level_fn`` calls (``level_plain``, or the
+    level kernel's wrapper for the hybrid), with the guide between levels
+    and the reverse fold: the lean tracer's semantics.  ``guide`` may be
+    any ``obs [R, 22] -> action [R, 2]`` callable; it runs on every lane's
+    observation (the same product for every caller) and is taken where the
+    lane is diffuse and its fb uniform is below ``fb_prob``.  No host
+    synchronisation between levels.  Returns ``(rgb [R, 3], counts [R, 4
+    or 6])``."""
+    R, dev = origins.shape[0], origins.device
+    o = origins
+    d = torch.stack(vec.normalise_safe_c(dirs[:, 0], dirs[:, 1], dirs[:, 2]),
+                    dim=-1)
+    running = torch.ones(R, dtype=torch.bool, device=dev)
+    guided = guide is not None
+    counts = torch.zeros((R, 6 if guided else 4), dtype=torch.int32,
+                         device=dev)
+    term_emis = torch.zeros(R, dtype=torch.bool, device=dev)
+    levels = []
+    for lvl in range(max_bounces):
+        lv = level_fn(o, d, running, None if uniforms is None
+                      else uniforms[lvl], table, fast=fast, want_hit=guided)
+        st = lv.state
+        emis = (st & ST_EMISSIVE) != 0
+        cont = (st & ST_CONT) != 0
+        d_next = lv.d_next
+        if guided:
+            use_fb = (cont & ((st & ST_MIRROR) == 0)
+                      & (fb_uniforms[lvl] < fb_prob))
+            h = lv.hit
+            obs = observation_c(h[:, 0], h[:, 1], h[:, 2], d[:, 0], d[:, 1],
+                                d[:, 2], *h[:, 3:].unbind(1), lvl,
+                                max_bounces)
+            act = torch.clamp(guide(obs), -1.0, 1.0)
+            g = fb_action_to_direction_c(act[:, 0], act[:, 1], h[:, 3],
+                                         h[:, 4], h[:, 5])
+            d_next = torch.where(use_fb[:, None], torch.stack(g, dim=-1),
+                                 d_next)
+            counts[:, 4] += use_fb
+        counts[:, 0] += running
+        counts[:, 1] += (st & ST_FOUND) != 0
+        counts[:, 2] += emis
+        counts[:, 3] += (st & ST_SMALL) != 0
+        term_emis |= emis
+        levels.append((st, lv.rec))
+        o, d, running = lv.o_next, d_next, cont
+    # A ray still running after the last level makes one more trace() call
+    # that the reference counts before its bounce-budget return.
+    counts[:, 0] += running
+    if guided:
+        counts[:, 5] = torch.where(term_emis, counts[:, 4], 0)
+    return fold_levels(levels, background), counts
 
 
 def path_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
                      uniforms: Optional[torch.Tensor], table: PathTable, *,
                      max_bounces: int, background: Sequence[float],
-                     fast: bool = False):
+                     fast: bool = False, guide=None,
+                     fb_uniforms: Optional[torch.Tensor] = None,
+                     fb_prob: float = 1.0):
     """Plain PyTorch version of the kernel, on any device: the lean
-    tracer's levels and reverse fold, op for op."""
-    rows = table.spec
-    em_flags, sm_flags, mr_flags = _flag_lists(rows, table.mirror_threshold)
-    extra_vals = [([row[4] for row in rows], False),
-                  ([row[5] for row in rows], False),
-                  ([row[6] for row in rows], False),
-                  (em_flags, True), (sm_flags, True), (mr_flags, True)]
-    ox, oy, oz = origins[:, 0], origins[:, 1], origins[:, 2]
-    dx, dy, dz = vec.normalise_safe_c(dirs[:, 0], dirs[:, 1], dirs[:, 2])
-    running = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
-    counts = torch.zeros((ox.shape[0], 4), dtype=torch.int32,
-                         device=ox.device)
-    levels = []
-    for lvl in range(max_bounces):
-        h = nearest_hit_c(ox, oy, oz, dx, dy, dz, rows, extra_vals,
-                          fast=fast)
-        px, py, pz, nx, ny, nz = h.px, h.py, h.pz, h.nx, h.ny, h.nz
-        ar, ag, ab, em, sm, mr = h.extras
-        found = running & h.found
-        emis = found & em
-        mirror = found & ~emis & mr
-        diffuse = found & ~emis & ~mirror
-        cont = mirror | diffuse
-
-        dr, dg, db = _direct_lighting_c(rows, table.emissive_idx, px, py, pz,
-                                        nx, ny, nz, h.idx, fast)
-        rlx, rly, rlz = vec.reflect_c(dx, dy, dz, nx, ny, nz)
-        if uniforms is None:
-            dfx, dfy, dfz = rlx, rly, rlz
-        else:
-            u = uniforms[lvl]
-            theta = torch.acos(vec.sqrt(u[:, 0]))
-            phi = 2.0 * math.pi * u[:, 1]
-            dfx, dfy, dfz = local_to_world_c(theta, phi, nx, ny, nz)
-
-        ox = torch.where(cont, px + nx * 0.001, ox)
-        oy = torch.where(cont, py + ny * 0.001, oy)
-        oz = torch.where(cont, pz + nz * 0.001, oz)
-        dx = torch.where(cont, torch.where(mirror, rlx, dfx), dx)
-        dy = torch.where(cont, torch.where(mirror, rly, dfy), dy)
-        dz = torch.where(cont, torch.where(mirror, rlz, dfz), dz)
-
-        miss = running & ~emis & ~cont
-        levels.append((emis, cont, miss, ar, ag, ab, dr, dg, db))
-        counts += torch.stack([running, found, emis, found & sm], dim=1)
-        running = running & cont
-    # A ray still running after the last level makes one more trace() call
-    # that the reference counts before its bounce-budget return.
-    counts[:, 0] += running
-
-    # Reverse fold, deepest level first.
-    bg = [float(b) for b in background]
-    vr = torch.full_like(ox, bg[0])
-    vg = torch.full_like(ox, bg[1])
-    vb = torch.full_like(ox, bg[2])
-    for emis, cont, miss, ar, ag, ab, dr, dg, db in reversed(levels):
-        cr = torch.trunc(vec.div_scalar(ar * torch.clamp_max(dr + vr, 255.0),
-                                        255.0))
-        cg = torch.trunc(vec.div_scalar(ag * torch.clamp_max(dg + vg, 255.0),
-                                        255.0))
-        cb = torch.trunc(vec.div_scalar(ab * torch.clamp_max(db + vb, 255.0),
-                                        255.0))
-        vr = torch.where(cont, cr, vr)
-        vg = torch.where(cont, cg, vg)
-        vb = torch.where(cont, cb, vb)
-        vr = torch.where(emis, ar, vr)
-        vg = torch.where(emis, ag, vg)
-        vb = torch.where(emis, ab, vb)
-        vr = torch.where(miss, bg[0], vr)
-        vg = torch.where(miss, bg[1], vg)
-        vb = torch.where(miss, bg[2], vb)
-    return torch.stack([vr, vg, vb], dim=-1), counts
+    tracer's levels and reverse fold, op for op (``trace_levels`` over
+    ``level_plain``)."""
+    return trace_levels(level_plain, origins, dirs, uniforms, table,
+                        max_bounces=max_bounces, background=background,
+                        fast=fast, guide=guide, fb_uniforms=fb_uniforms,
+                        fb_prob=fb_prob)

@@ -1,300 +1,283 @@
 // Whole-trace path kernel for Hopper (sm_90a): one thread per ray.
 //
-// Replaces raytracer_tpu/core/pallas_path.py::_kernel, unguided branch
-// (reached through trace_path_pallas_impl).  Semantics are those of
-// raytracer_tpu/trace/path.py::_trace_path_lean_impl, op for op: for each
-// level, a nearest-sphere sweep by |t| with in-sweep attribute selection;
-// direct light as the sum over emissive spheres of
+// Replaces raytracer_tpu/core/pallas_path.py::_kernel, both branches
+// (reached through trace_path_pallas_impl): unguided, and guided with the
+// distilled student inside the kernel (_student_mlp, student_guide_spec).
+// Semantics are those of raytracer_tpu/trace/path.py::_trace_path_lean_impl,
+// op for op: for each level, a nearest-sphere sweep by |t| with in-sweep
+// attribute selection; direct light as the sum over emissive spheres of
 // trunc(0.3*max(0,cos)/d^2*colour), skipping the hit sphere; a mirror
-// reflect, or a cosine bounce theta = acos(sqrt(u0)), phi = 2*pi*u1 from the
-// level's uniforms; the 0.001 normal offset.  Then the reverse fold
-// trunc(albedo * min(255, direct + child) / 255), background on a miss.
-// The plain PyTorch version beside it is core/cuda_path.py::path_trace_plain.
-//
-// Rounding: built with -fmad=false (core/native.py), so no multiply-add is
-// contracted and every operation rounds on its own, as the plain version's
-// separate PyTorch operations do on the card; sqrtf and '/' are IEEE (no
-// fast math).  Constants are written as (float)<double>, the rounding
-// PyTorch applies to a Python float scalar.  NaN-propagating max() mirrors
-// torch.clamp_min / jnp.maximum.
+// reflect, or on a diffuse hit a cosine bounce theta = acos(sqrt(u0)),
+// phi = 2*pi*u1 from the level's uniforms, or, guided and where the level's
+// fb uniform is below fb_prob, the student's action on the 22-D observation
+// (clipped to [-1, 1]; theta = (a0+1)*pi/4, phi = a1*pi); the 0.001 normal
+// offset.  Then the reverse fold trunc(albedo * min(255, direct + child) /
+// 255), background on a miss.  The level's arithmetic is path_common.cuh's,
+// the student's student.cuh's.  The plain PyTorch version beside it is
+// core/cuda_path.py::path_trace_plain.
 //
 // What bounds it on an H100: operations.  Per ray and level run, the sweep
 // costs about 26 f32 operations a sphere (29 spheres in the chandelier), and
 // a level that continues adds about 32 a light for direct lighting (21
 // emissive spheres) plus about 80 for the hit point, normal, reflection,
-// offset and fold: about 1.5 k operations a ray-level, so the frame's
-// ray-levels (3.84 M rays at 800x600x8 spp, a few levels each) take
-// ~0.1-0.5 ms at 67 TFLOP/s f32.  Its I/O is 52 bytes a ray (origin and
-// direction in; rgb and four counts out), ~0.2 GB a frame or ~0.06 ms at
-// 3.35 TB/s.  chip_smoke.py counts both from each run's data.
+// offset and fold: about 1.5 k operations a ray-level.  A guided bounce adds
+// the student's 2*(22*128 + 128*128 + 128*2) = 38,912 flops at the shipped
+// width, work for the tensor cores (989 TFLOP/s dense bf16) that this first
+// kernel does as f32 multiply-adds in the CUDA cores.  Its I/O is 52 bytes a
+// ray (origin and direction in; rgb and four counts out), plus, guided,
+// 12 bytes a ray-level of uniforms in and 8 bytes of counts out.
+// chip_smoke.py counts the bound from each run's data.
 //
-// Design for that bound: one thread per ray and a 128-thread block with a
-// masked ragged tail (no padding of the ray count); the scene table (sphere
-// rows, material flags, emissive list) is staged in shared memory once per
-// block, so every thread's sweep reads it from there and one build serves
-// every scene; a ray leaves the level loop as soon as it terminates, so the
-// work done is the work its path needs (no masked lanes carried to the last
-// level); the level records for the fold stay in thread-local storage, so
-// nothing but the result goes back to device memory.  Making it fast (warp
-// coherence, fewer divides) is later work.
+// Design for that bound: one thread per ray in 128-thread blocks with a
+// masked ragged tail; the scene table (sphere rows with their material
+// columns, flags, emissive list) is staged in shared memory once per block;
+// a ray leaves the level loop as soon as it terminates; the level records
+// for the fold stay in thread-local storage.  Guided, the student's weights
+// (bf16 or f32 values, about 40 KB or 80 KB at 22->128->128->2) and one
+// activation tile a warp sit in dynamic shared memory, and the grid is cut
+// to the blocks that fit on the card at once, each looping over ray tiles,
+// so every block stages the weights once.  The MLP runs for the lanes of a
+// warp that take the guide at the same level, together.  Making it fast
+// (mma.sync / wgmma, warp coherence, fewer divides) is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
 
+#include "path_common.cuh"
+#include "student.cuh"
+
 namespace {
 
-constexpr int kMaxSpheres = 64;   // core/cuda_path.py MAX_SPHERES
-constexpr int kMaxEmissive = 64;  // core/cuda_path.py MAX_EMISSIVE
 constexpr int kMaxBounces = 16;   // core/cuda_path.py MAX_BOUNCES
 constexpr int kThreads = 128;
-constexpr int kRow = 7;           // cx cy cz r colr colg colb
-
-constexpr int kFlagEmissive = 1;
-constexpr int kFlagSmall = 2;
-constexpr int kFlagMirror = 4;
+constexpr int kWarps = kThreads / 32;
 
 constexpr unsigned char kMiss = 1;
 constexpr unsigned char kEmissive = 2;
 constexpr unsigned char kContinue = 3;
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  // torch.clamp_min(a, b) with a constant b: NaN in a propagates.
-  return (a != a) ? a : fmaxf(a, b);
-}
-
-__device__ __forceinline__ void normalise3(float& x, float& y, float& z) {
-  const float m = max_nan(sqrtf(x * x + y * y + z * z),
-                          static_cast<float>(1e-20));
-  x = x / m;
-  y = y / m;
-  z = z / m;
-}
-
 struct Level {
   float ar, ag, ab, dr, dg, db;
 };
 
-__global__ void __launch_bounds__(kThreads)
-path_trace_kernel(const float* __restrict__ origins,
-                  const float* __restrict__ dirs,
-                  const float* __restrict__ uniforms,
-                  const float* __restrict__ spheres,
-                  const int* __restrict__ flags,
-                  const int* __restrict__ emissive, int n_spheres,
-                  int n_emissive, long long n_rays, int max_bounces,
-                  float bg_r, float bg_g, float bg_b, int fast,
-                  float* __restrict__ rgb, int* __restrict__ counts) {
-  __shared__ float s_sph[kMaxSpheres * kRow];
-  __shared__ int s_flags[kMaxSpheres];
-  __shared__ int s_emis[kMaxEmissive];
-  for (int k = threadIdx.x; k < n_spheres * kRow; k += blockDim.x)
-    s_sph[k] = spheres[k];
-  for (int k = threadIdx.x; k < n_spheres; k += blockDim.x)
-    s_flags[k] = flags[k];
-  for (int k = threadIdx.x; k < n_emissive; k += blockDim.x)
-    s_emis[k] = emissive[k];
-  __syncthreads();
+struct Params {
+  const float* origins;
+  const float* dirs;
+  const float* uniforms;      // [L, R, 2] or null (no diffuse bounce)
+  const float* fb_uniforms;   // [L, R], guided only
+  const float* spheres;
+  const int* flags;
+  const int* emissive;
+  const float* student;       // packed student (student.cuh), or null
+  float* rgb;
+  int* counts;                // [R, 4], guided [R, 6]
+  long long n_rays;
+  int n_spheres, n_emissive, max_bounces, fast;
+  float bg_r, bg_g, bg_b, fb_prob;
+  student::Dims dims;
+};
 
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n_rays) return;
+// Dynamic shared memory of a guided launch: the weights, then one tile a
+// warp.
+template <typename T>
+size_t guided_smem(student::Dims d) {
+  return (static_cast<size_t>(student::packed_size(d)) +
+          static_cast<size_t>(kWarps) * d.h1 * 32) * sizeof(T);
+}
 
-  float ox = origins[3 * i], oy = origins[3 * i + 1], oz = origins[3 * i + 2];
-  float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
-  normalise3(dx, dy, dz);
-
+template <typename T>
+__global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
+  __shared__ path::Table tb;
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  path::stage(tb, p.spheres, p.flags, p.emissive, p.n_spheres, p.n_emissive);
+  const bool guided = p.student != nullptr;
+  T* s_w = reinterpret_cast<T*>(s_dyn);
+  T* s_tile = nullptr;
+  if (guided) {
+    const int nw = student::packed_size(p.dims);
+    for (int k = threadIdx.x; k < nw; k += blockDim.x)
+      s_w[k] = student::from_f<T>(p.student[k]);
+    s_tile = s_w + nw + (threadIdx.x / 32) * p.dims.h1 * 32;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x % 32;
+  const long long n_rays = p.n_rays;
   const float kOffset = static_cast<float>(0.001);
-  const float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
-  const float kTangentZ = static_cast<float>(0.9);
-  const float kLightScale = static_cast<float>(0.3);
+  const float kPi = static_cast<float>(3.141592653589793);
 
-  unsigned char kind[kMaxBounces];
-  Level rec[kMaxBounces];
-  int n_run = 0, n_found = 0, n_emis = 0, n_small = 0;
-  int n_levels = 0;
-  bool running = true;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n_rays; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float ox = p.origins[3 * i], oy = p.origins[3 * i + 1],
+          oz = p.origins[3 * i + 2];
+    float dx = p.dirs[3 * i], dy = p.dirs[3 * i + 1], dz = p.dirs[3 * i + 2];
+    path::normalise3(dx, dy, dz);
 
-  for (int lvl = 0; lvl < max_bounces; ++lvl) {
-    ++n_run;
-    n_levels = lvl + 1;
+    unsigned char kind[kMaxBounces];
+    Level rec[kMaxBounces];
+    int n_run = 0, n_found = 0, n_emis = 0, n_small = 0, n_fb = 0;
+    int n_levels = 0;
+    bool running = true;
 
-    // Nearest hit by |t|, attributes selected in the sweep.
-    float best_m = FLT_MAX, best_t = FLT_MAX;
-    int best_i = 0, best_flags = 0;
-    float bcx = 0.0f, bcy = 0.0f, bcz = 0.0f;
-    float ar = 0.0f, ag = 0.0f, ab = 0.0f;
-    bool found = false;
-    for (int s = 0; s < n_spheres; ++s) {
-      const float* sp = s_sph + s * kRow;
-      const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-      const float lx = cx - ox, ly = cy - oy, lz = cz - oz;
-      const float tca = lx * dx + ly * dy + lz * dz;
-      const float d2 = max_nan(lx * lx + ly * ly + lz * lz - tca * tca, 0.0f);
-      const float rr = r * r;
-      const float thc = sqrtf(max_nan(rr - d2, 0.0f));
-      const float t = tca - thc;
-      const bool inside = fast ? (d2 <= rr) : (sqrtf(d2) <= r);
-      const bool valid = (tca >= 0.0f) && inside;
-      const float m = fabsf(t);
-      if (valid && m < best_m) {
-        best_m = m;
-        best_t = t;
-        best_i = s;
-        bcx = cx;
-        bcy = cy;
-        bcz = cz;
-        ar = sp[4];
-        ag = sp[5];
-        ab = sp[6];
-        best_flags = s_flags[s];
+    for (int lvl = 0; lvl < p.max_bounces; ++lvl) {
+      ++n_run;
+      n_levels = lvl + 1;
+      const path::Hit h = path::sweep(tb, p.n_spheres, ox, oy, oz, dx, dy,
+                                      dz, p.fast);
+      if (!h.found) {
+        kind[lvl] = kMiss;
+        running = false;
+        break;
       }
-      found = found || valid;
-    }
-    if (!found) {
-      kind[lvl] = kMiss;
-      running = false;
-      break;
-    }
-    ++n_found;
-    if (best_flags & kFlagSmall) ++n_small;
-    if (best_flags & kFlagEmissive) {
-      ++n_emis;
-      kind[lvl] = kEmissive;
-      rec[lvl].ar = ar;
-      rec[lvl].ag = ag;
-      rec[lvl].ab = ab;
-      running = false;
-      break;
-    }
+      ++n_found;
+      if (h.flags & path::kFlagSmall) ++n_small;
+      const float* sp = tb.sph + h.idx * path::kRow;
+      if (h.flags & path::kFlagEmissive) {
+        ++n_emis;
+        kind[lvl] = kEmissive;
+        rec[lvl].ar = sp[4];
+        rec[lvl].ag = sp[5];
+        rec[lvl].ab = sp[6];
+        running = false;
+        break;
+      }
 
-    const float px = ox + dx * best_t;
-    const float py = oy + dy * best_t;
-    const float pz = oz + dz * best_t;
-    float nx = px - bcx, ny = py - bcy, nz = pz - bcz;
-    normalise3(nx, ny, nz);
+      float dr, dg, db;
+      path::direct_light(tb, p.n_emissive, h, p.fast, dr, dg, db);
+      float rx, ry, rz;
+      path::reflect(dx, dy, dz, h.nx, h.ny, h.nz, rx, ry, rz);
+      const bool mirror = (h.flags & path::kFlagMirror) != 0;
+      if (!mirror && p.uniforms != nullptr) {
+        const long long at = static_cast<long long>(lvl) * n_rays + i;
+        const bool use_fb = guided && p.fb_uniforms[at] < p.fb_prob;
+        if (use_fb) {
+          ++n_fb;
+          // make_observation: colour 0, through 0, pads 0.5.
+          const float obs[student::kObs] = {
+              h.px, h.py, h.pz, dx, dy, dz, h.nx, h.ny, h.nz,
+              sp[7], sp[8], sp[9], sp[10], 0.0f, 0.0f, 0.0f,
+              static_cast<float>(lvl) / static_cast<float>(p.max_bounces),
+              0.0f, sp[11] / 100.0f, 0.5f, 0.5f, 0.5f};
+          float a0, a1;
+          student::forward<T>(s_w, s_tile, p.dims, obs, lane, a0, a1);
+          a0 = path::clamp_nan(a0, -1.0f, 1.0f);
+          a1 = path::clamp_nan(a1, -1.0f, 1.0f);
+          path::local_to_world((a0 + 1.0f) * kPi / 4.0f, a1 * kPi, h.nx,
+                               h.ny, h.nz, rx, ry, rz);
+        } else {
+          const float* u = p.uniforms + 2 * at;
+          path::cosine_bounce(u[0], u[1], h.nx, h.ny, h.nz, rx, ry, rz);
+        }
+      }
 
-    // Direct light from every emissive sphere but the hit one.
-    float dr = 0.0f, dg = 0.0f, db = 0.0f;
-    for (int k = 0; k < n_emissive; ++k) {
-      const int s = s_emis[k];
-      if (s == best_i) continue;               // w = 0: adds trunc(0) = 0
-      const float* sp = s_sph + s * kRow;
-      const float tx = sp[0] - px, ty = sp[1] - py, tz = sp[2] - pz;
-      const float d2 = tx * tx + ty * ty + tz * tz;
-      float w;
-      if (fast) {
-        const float inv = rsqrtf(max_nan(d2, static_cast<float>(1e-30)));
-        const float ldotn = tx * nx + ty * ny + tz * nz;
-        w = max_nan(ldotn * inv, 0.0f) * (inv * inv) * kLightScale;
+      ox = h.px + h.nx * kOffset;
+      oy = h.py + h.ny * kOffset;
+      oz = h.pz + h.nz * kOffset;
+      dx = rx;
+      dy = ry;
+      dz = rz;
+      kind[lvl] = kContinue;
+      rec[lvl] = Level{sp[4], sp[5], sp[6], dr, dg, db};
+    }
+    // A ray still running after the last level makes one more trace() call
+    // that the reference counts before its bounce-budget return.
+    if (running) ++n_run;
+
+    float vr = p.bg_r, vg = p.bg_g, vb = p.bg_b;
+    for (int lvl = n_levels - 1; lvl >= 0; --lvl) {
+      const Level& l = rec[lvl];
+      if (kind[lvl] == kContinue) {
+        vr = truncf(l.ar * fminf(255.0f, l.dr + vr) / 255.0f);
+        vg = truncf(l.ag * fminf(255.0f, l.dg + vg) / 255.0f);
+        vb = truncf(l.ab * fminf(255.0f, l.db + vb) / 255.0f);
+      } else if (kind[lvl] == kEmissive) {
+        vr = l.ar;
+        vg = l.ag;
+        vb = l.ab;
       } else {
-        const float dist = sqrtf(d2);
-        const float den = max_nan(dist, static_cast<float>(1e-20));
-        const float cosang = (tx / den) * nx + (ty / den) * ny +
-                             (tz / den) * nz;
-        w = max_nan(cosang, 0.0f) /
-            max_nan(dist * dist, static_cast<float>(1e-30)) * kLightScale;
+        vr = p.bg_r;
+        vg = p.bg_g;
+        vb = p.bg_b;
       }
-      dr = dr + truncf(w * sp[4]);
-      dg = dg + truncf(w * sp[5]);
-      db = db + truncf(w * sp[6]);
     }
-
-    // Mirror reflect: normalise both, reflect, renormalise.
-    float vx = dx, vy = dy, vz = dz;
-    normalise3(vx, vy, vz);
-    float mx = nx, my = ny, mz = nz;
-    normalise3(mx, my, mz);
-    const float sdot = 2.0f * (vx * mx + vy * my + vz * mz);
-    float rx = vx - mx * sdot, ry = vy - my * sdot, rz = vz - mz * sdot;
-    normalise3(rx, ry, rz);
-
-    const bool mirror = (best_flags & kFlagMirror) != 0;
-    if (!mirror && uniforms != nullptr) {
-      // Cosine bounce in the renderer tangent frame.
-      const float* u = uniforms + 2 * (static_cast<long long>(lvl) * n_rays + i);
-      const float theta = acosf(sqrtf(u[0]));
-      const float phi = kTwoPi * u[1];
-      const bool above = fabsf(nz) > kTangentZ;
-      float tx = above ? 1.0f : -ny;
-      float ty = above ? 0.0f : nx;
-      float tz = 0.0f;
-      normalise3(tx, ty, tz);
-      float bx = ny * tz - nz * ty;
-      float by = nz * tx - nx * tz;
-      float bz = nx * ty - ny * tx;
-      normalise3(bx, by, bz);
-      const float st = sinf(theta);
-      const float lx = st * cosf(phi);
-      const float ly = st * sinf(phi);
-      const float lz = cosf(theta);
-      rx = lx * tx + ly * bx + lz * nx;
-      ry = lx * ty + ly * by + lz * ny;
-      rz = lx * tz + ly * bz + lz * nz;
-      normalise3(rx, ry, rz);
-    }
-
-    ox = px + nx * kOffset;
-    oy = py + ny * kOffset;
-    oz = pz + nz * kOffset;
-    dx = rx;
-    dy = ry;
-    dz = rz;
-    kind[lvl] = kContinue;
-    rec[lvl] = Level{ar, ag, ab, dr, dg, db};
-  }
-  // A ray still running after the last level makes one more trace() call
-  // that the reference counts before its bounce-budget return.
-  if (running) ++n_run;
-
-  float vr = bg_r, vg = bg_g, vb = bg_b;
-  for (int lvl = n_levels - 1; lvl >= 0; --lvl) {
-    const Level& l = rec[lvl];
-    if (kind[lvl] == kContinue) {
-      vr = truncf(l.ar * fminf(255.0f, l.dr + vr) / 255.0f);
-      vg = truncf(l.ag * fminf(255.0f, l.dg + vg) / 255.0f);
-      vb = truncf(l.ab * fminf(255.0f, l.db + vb) / 255.0f);
-    } else if (kind[lvl] == kEmissive) {
-      vr = l.ar;
-      vg = l.ag;
-      vb = l.ab;
-    } else {
-      vr = bg_r;
-      vg = bg_g;
-      vb = bg_b;
+    p.rgb[3 * i] = vr;
+    p.rgb[3 * i + 1] = vg;
+    p.rgb[3 * i + 2] = vb;
+    const int nc = guided ? 6 : 4;
+    int* c = p.counts + nc * i;
+    c[0] = n_run;
+    c[1] = n_found;
+    c[2] = n_emis;
+    c[3] = n_small;
+    if (guided) {
+      // fb_success: the lane's guided bounces, if it ended on a light.
+      c[4] = n_fb;
+      c[5] = (kind[n_levels - 1] == kEmissive) ? n_fb : 0;
     }
   }
-  rgb[3 * i] = vr;
-  rgb[3 * i + 1] = vg;
-  rgb[3 * i + 2] = vb;
-  counts[4 * i] = n_run;
-  counts[4 * i + 1] = n_found;
-  counts[4 * i + 2] = n_emis;
-  counts[4 * i + 3] = n_small;
+}
+
+template <typename T>
+int launch(const Params& p, cudaStream_t stream) {
+  const long long blocks = (p.n_rays + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned grid = static_cast<unsigned>(blocks);
+  size_t smem = 0;
+  if (p.student != nullptr) {
+    smem = guided_smem<T>(p.dims);
+    cudaError_t err = cudaFuncSetAttribute(
+        path_trace_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // As many blocks as fit on the card at once, each staging the weights
+    // once and looping over ray tiles.
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, path_trace_kernel<T>, kThreads, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long fit = static_cast<long long>(sms) * per_sm;
+    if (fit < blocks) grid = static_cast<unsigned>(fit);
+  }
+  path_trace_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Returns a cudaError_t: cudaErrorInvalidValue for arguments beyond the
-// compile-time capacities, else cudaGetLastError() after the launch.
-extern "C" int path_trace_launch(const float* origins, const float* dirs,
-                                 const float* uniforms, const float* spheres,
-                                 const int* flags, const int* emissive,
-                                 int n_spheres, int n_emissive,
-                                 long long n_rays, int max_bounces,
-                                 float bg_r, float bg_g, float bg_b, int fast,
-                                 float* rgb, int* counts, void* stream) {
-  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_emissive < 0 ||
-      n_emissive > kMaxEmissive || max_bounces < 1 ||
+// compile-time capacities, else the launch's status.  student: null
+// (unguided), or the packed student with its dims (n_hidden 1 or 2, padded
+// widths h1, h2) and bf16 != 0 for the bf16 mode.
+extern "C" int path_trace_launch(
+    const float* origins, const float* dirs, const float* uniforms,
+    const float* fb_uniforms, float fb_prob, const float* spheres,
+    const int* flags, const int* emissive, int n_spheres, int n_emissive,
+    long long n_rays, int max_bounces, float bg_r, float bg_g, float bg_b,
+    int fast, const float* student, int n_hidden, int h1, int h2, int bf16,
+    float* rgb, int* counts, void* stream) {
+  if (n_spheres < 1 || n_spheres > path::kMaxSpheres || n_emissive < 0 ||
+      n_emissive > path::kMaxEmissive || max_bounces < 1 ||
       max_bounces > kMaxBounces || n_rays < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (student != nullptr &&
+      (uniforms == nullptr || fb_uniforms == nullptr || n_hidden < 1 ||
+       n_hidden > 2 || h1 < 8 || h1 > student::kMaxWidth || h1 % 8 != 0 ||
+       (n_hidden == 2 &&
+        (h2 < 8 || h2 > student::kMaxWidth || h2 % 8 != 0))))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays == 0) return static_cast<int>(cudaSuccess);
-  const long long blocks = (n_rays + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  path_trace_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      origins, dirs, uniforms, spheres, flags, emissive, n_spheres,
-      n_emissive, n_rays, max_bounces, bg_r, bg_g, bg_b, fast, rgb, counts);
-  return static_cast<int>(cudaGetLastError());
+  Params p{origins, dirs, uniforms, fb_uniforms, spheres, flags, emissive,
+           student, rgb, counts, n_rays, n_spheres, n_emissive, max_bounces,
+           fast, bg_r, bg_g, bg_b, fb_prob,
+           student::Dims{n_hidden, h1, n_hidden == 2 ? h2 : 0}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (student != nullptr && bf16) ? launch<__nv_bfloat16>(p, s)
+                                      : launch<float>(p, s);
 }

@@ -9,8 +9,9 @@ by ``min(1, c/255)``.  All samples of all pixels trace as one wavefront of
 
 Randomness comes in as planes, in the JAX schedule: ``jitter[spp, H, W, 2]``
 (the JAX renderer's ``uniform(split(key)[0], (spp, H, W, 2))``) and, when a
-diffuse bounce is possible, ``uniforms[max_bounces, R, 2]``.  Planes not
-passed are drawn by ``generator`` on the device, jitter first.
+diffuse bounce is possible, ``uniforms[max_bounces, R, 2]`` and, guided,
+``fb_uniforms[max_bounces, R]``.  Planes not passed are drawn by
+``generator`` on the device, jitter first.
 """
 from __future__ import annotations
 
@@ -46,14 +47,19 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
                 background=(2.0, 2.0, 5.0),
                 jitter: Optional[torch.Tensor] = None,
                 uniforms: Optional[torch.Tensor] = None,
+                fb_uniforms: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                guide_fn=None, impl: str = "kernel",
+                guide_fn=None, fb_prob: float = 1.0, impl: str = "kernel",
                 precision: str = "exact", device=None):
     """Render a ``[H, W, 3]`` unit-range image and its ``PathStats``.
 
     Runs on ``device`` (``cuda`` by default; the scene moves there).
-    ``impl``: "kernel" (the CUDA path kernel; its plain version for a CPU
-    device) or "plain" (the plain PyTorch version anywhere)."""
+    ``impl``: "kernel" (the CUDA path kernel, with a student guide inside
+    it; its plain version for a CPU device), "hybrid" (one level kernel a
+    bounce, the guide between levels) or "plain" (the plain PyTorch version
+    anywhere).  ``guide_fn``: a distilled student
+    (``fb.registry.guide_for``), taken on diffuse bounces with probability
+    ``fb_prob``."""
     dev = resolve_device(device)
     scene = scene.to(dev)
     if jitter is None:
@@ -70,7 +76,8 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
     rgb, stats = trace_path(scene, origins, dirs, max_bounces=max_bounces,
                             mirror_threshold=mirror_threshold,
                             background=background, uniforms=uniforms,
-                            generator=generator, guide_fn=guide_fn,
-                            impl=impl, precision=precision)
+                            fb_uniforms=fb_uniforms, generator=generator,
+                            guide_fn=guide_fn, fb_prob=fb_prob, impl=impl,
+                            precision=precision)
     img = _assemble(rgb, spp=spp, height=height, width=width)
     return img, stats

@@ -4,10 +4,14 @@ Counterpart of ``raytracer_tpu/trace/sampling.py::local_to_world_c`` in the
 "renderer" tangent convention (FB/fb_vs_traditional_complex.py:355-366):
 the tangent is ``(1, 0, 0)`` when ``|n.z| > 0.9``, else
 ``cross((0, 0, 1), n) = (-ny, nx, 0)``; the bitangent is
-``normalise(cross(n, t))``.  Same op order as the JAX code.  The env and
-trainer conventions belong to the RL slice.
+``normalise(cross(n, t))``.  Same op order as the JAX code.
+``fb_action_to_direction_c`` (JAX ``sampling.py:137-142``) maps a guide's
+action to its direction.  The env and trainer conventions belong to the RL
+slice.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -43,3 +47,11 @@ def local_to_world_c(theta, phi, nx, ny, nz):
     return vec.normalise_safe_c(lx * tx + ly * bx + lz * nx,
                                 lx * ty + ly * by + lz * ny,
                                 lx * tz + ly * bz + lz * nz)
+
+
+def fb_action_to_direction_c(a0, a1, nx, ny, nz):
+    """A guide's action (clipped to [-1, 1]) as a direction about ``n``:
+    θ = (a₀+1)π/4, φ = a₁π, renderer frame.  Returns ``(wx, wy, wz)``."""
+    theta = vec.div_scalar((a0 + 1.0) * math.pi, 4.0)
+    phi = a1 * math.pi
+    return local_to_world_c(theta, phi, nx, ny, nz)

@@ -2,8 +2,10 @@
 """Where the time of the port's frames goes, on one NVIDIA GPU.
 
 Runs the path tracer's frame (chandelier traditional, 800x600, 8 spp, 8
-bounces, mirror_threshold=0.0) and the Whitted tracer's (planets2,
-2001x2001, 10 bounces) and reports, for each:
+bounces, mirror_threshold=0.0), the guided frame (the same at
+mirror_threshold=0.9, fb_prob=1.0, the shipped student; impl="kernel" and
+impl="hybrid") and the Whitted tracer's (planets2, 2001x2001, 10 bounces)
+and reports, for each:
 
 * a staged breakdown on the host clock, each stage ended by
   ``torch.cuda.synchronize()``: jitter draw, camera, scene-table set-up,
@@ -11,9 +13,9 @@ bounces, mirror_threshold=0.0) and the Whitted tracer's (planets2,
 * a ``torch.profiler`` window over a few frames: device time by kernel
   name and the device's idle share of the window;
 * the path tracer's pixel-centre frame (spp 1) traced by the kernel on
-  the card and by the plain version on the CPU, and the Whitted tracer's
-  true_original 601x601 frame rendered both ways: how many rays and
-  pixels differ between the two devices.
+  the card and by the plain version on the CPU (guided: 200x150, spp 1),
+  and the Whitted tracer's true_original 601x601 frame rendered both
+  ways: how many rays and pixels differ between the two devices.
 
 Run from the repository root: ``python3 scripts/profile_torch_frame.py``.
 Prints one JSON line per phase, with the card's name and power limit.
@@ -32,6 +34,8 @@ sys.path.insert(0, str(ROOT))
 from raytracer_tpu_torch.core import (  # noqa: E402
     cuda_intersect, cuda_path, cuda_whitted)
 from raytracer_tpu_torch.core.vec import div_scalar  # noqa: E402
+from raytracer_tpu_torch.fb.registry import (  # noqa: E402
+    STUDENTS_DIR, guide_for)
 from raytracer_tpu_torch.render import path_renderer  # noqa: E402
 from raytracer_tpu_torch.render.camera import (  # noqa: E402
     grid_rays, perspective_rays)
@@ -41,7 +45,7 @@ from raytracer_tpu_torch.scene import library  # noqa: E402
 from raytracer_tpu_torch.scene.library import chandelier_scene  # noqa: E402
 from raytracer_tpu_torch.trace.shade import terminal_rgb  # noqa: E402
 from raytracer_tpu_torch.trace.path import (  # noqa: E402
-    PathStats, emissive_indices, no_diffuse_possible, scene_spec)
+    PathStats, emissive_indices, no_diffuse_possible, scene_spec, trace_path)
 
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
@@ -146,6 +150,92 @@ def whitted(dev, card):
     return out
 
 
+def guided(dev, card, scene, p):
+    """The guided 800x600@8spp/8 frame (mirror_threshold=0.9, fb_prob=1.0,
+    the shipped student): stages of ``render_path(impl="kernel")``, the
+    profiler over both impls, and the card against the CPU."""
+    guide = guide_for("chandelier", W, H, STUDENTS_DIR)
+    kw = dict(width=W, height=H, spp=SPP, max_bounces=BOUNCES,
+              fov=p["fov"], camera_position=p["camera_position"],
+              mirror_threshold=0.9, background=BG, device=dev,
+              guide_fn=guide, fb_prob=1.0)
+
+    def frame(impl="kernel"):
+        return path_renderer.render_path(
+            scene, generator=torch.Generator(dev).manual_seed(0), impl=impl,
+            **kw)
+
+    for impl in ("kernel", "hybrid"):
+        frame(impl)                      # build and warm up
+    stages = {k: [] for k in ("jitter", "draws", "camera", "table",
+                              "kernel", "stats", "assemble", "render_path",
+                              "render_path_hybrid")}
+    for _ in range(REPS):
+        g = torch.Generator(dev).manual_seed(0)
+        jitter, t = stage_ms(lambda: torch.rand((SPP, H, W, 2), device=dev,
+                                                generator=g))
+        stages["jitter"].append(t)
+        R = SPP * H * W
+        (u, f), t = stage_ms(lambda: (
+            torch.rand((BOUNCES, R, 2), generator=g, device=dev),
+            torch.rand((BOUNCES, R), generator=g, device=dev)))
+        stages["draws"].append(t)
+        (o, d), t = stage_ms(lambda: perspective_rays(
+            W, H, fov=p["fov"], origin=p["camera_position"],
+            sample_xy=jitter))
+        stages["camera"].append(t)
+
+        def table():
+            no_diffuse_possible(scene, 0.9)
+            return cuda_path.path_table(scene_spec(scene),
+                                        emissive_indices(scene), 0.9, dev)
+        tab, t = stage_ms(table)
+        stages["table"].append(t)
+        o, d = o.contiguous(), d.contiguous()
+        (rgb, counts), t = stage_ms(lambda: cuda_path.path_trace(
+            o, d, u, tab, max_bounces=BOUNCES, background=BG, guide=guide,
+            fb_uniforms=f, fb_prob=1.0))
+        stages["kernel"].append(t)
+        _, t = stage_ms(lambda: PathStats.from_counts(counts))
+        stages["stats"].append(t)
+        _, t = stage_ms(lambda: path_renderer._assemble(
+            rgb, spp=SPP, height=H, width=W))
+        stages["assemble"].append(t)
+        _, t = stage_ms(frame)
+        stages["render_path"].append(t)
+        _, t = stage_ms(lambda: frame("hybrid"))
+        stages["render_path_hybrid"].append(t)
+    breakdown = {k: {"min_ms": min(v), "median_ms": sorted(v)[len(v) // 2]}
+                 for k, v in stages.items()}
+    out = [{"phase": "guided_host_breakdown", **card, "reps": REPS,
+            "frame": f"{W}x{H}@{SPP}spp/{BOUNCES} guided",
+            "stages": breakdown}]
+    for impl in ("kernel", "hybrid"):
+        out.append({"phase": f"guided_profiler_{impl}", **card, "frames": 3,
+                    **profile(lambda: frame(impl))})
+    # Card vs CPU: pixel centres at 200x150, the plain version on the CPU.
+    w, h = 200, 150
+    res = []
+    for device in (dev, "cpu"):
+        sc = chandelier_scene(device=device)[0]
+        oc, dc = perspective_rays(w, h, fov=p["fov"],
+                                  origin=p["camera_position"], device=device)
+        g = torch.Generator().manual_seed(1)
+        u = torch.rand((BOUNCES, w * h, 2), generator=g).to(device)
+        f = torch.rand((BOUNCES, w * h), generator=g).to(device)
+        rgb, st = trace_path(sc, oc, dc, max_bounces=BOUNCES,
+                             mirror_threshold=0.9, background=BG,
+                             uniforms=u, fb_uniforms=f, guide_fn=guide,
+                             fb_prob=1.0)
+        res.append((rgb.cpu(), st.as_dict()))
+    diff = (res[0][0] != res[1][0]).any(-1)
+    out.append({"phase": "guided_card_vs_cpu", **card, "rays": w * h,
+                "samples_differ": int(diff.sum()),
+                "max_abs_diff": float((res[0][0] - res[1][0]).abs().max()),
+                "stats_card": res[0][1], "stats_cpu": res[1][1]})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_frame: no CUDA device", file=sys.stderr)
@@ -229,6 +319,7 @@ def main():
             {"ray": int(i), "card": rk[i].tolist(), "cpu": rh[i].tolist(),
              "dir": dh[i].tolist()}
             for i in torch.nonzero(diff).ravel()[:5]]})
+    results += guided(dev, card, scene, p)
     results += whitted(dev, card)
     for r in results:
         print(json.dumps(r), flush=True)

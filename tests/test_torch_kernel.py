@@ -1,6 +1,6 @@
 """The kernels' wrappers (raytracer_tpu_torch/core/cuda_path.py,
-cuda_whitted.py, cuda_intersect.py) and, on a card, each kernel against its
-plain PyTorch version.
+cuda_level.py, cuda_whitted.py, cuda_intersect.py) and, on a card, each
+kernel against its plain PyTorch version.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX (the suite's conftest imports JAX; skip it there):
@@ -12,14 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from raytracer_tpu_torch.core import cuda_intersect, cuda_path, cuda_whitted
+from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
+                                      cuda_whitted)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
 from raytracer_tpu_torch.render.camera import grid_rays
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.library import chandelier_scene
 from raytracer_tpu_torch.scene.types import scene_astype
-from raytracer_tpu_torch.trace.path import trace_path
+from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
+                                            trace_path)
 from raytracer_tpu_torch.trace.whitted import trace_whitted
 
 TRACE_FIELDS = ("hit", "idx", "t", "point", "normal", "bounces", "through")
@@ -252,3 +254,203 @@ def test_whitted_kernels_match_plain_on_card(name):
     res = trace_whitted(scene, o, d, p["max_bounces"], enable_glass=eg,
                         enable_mirror=em, impl="kernel")
     assert bool(res.hit.any())
+
+
+def _student(kind="one_hot", width=16, hidden_layers=2, seed=0,
+             n_in=22, n_out=2):
+    """A 22->width(->width)->2 student: ``one_hot`` (a0 = px through the
+    hidden units, a1 = -nx; exact in any summation order) or ``random``."""
+    from raytracer_tpu_torch.fb.distill import DistilledGuide
+    dims = (n_in,) + (width,) * hidden_layers + (n_out,)
+    rng = np.random.RandomState(seed)
+    params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        if kind == "random":
+            k = (rng.randn(a, b) / np.sqrt(a)).astype(np.float32)
+        else:
+            k = np.zeros((a, b), np.float32)
+            if i == 0:
+                for j, c in enumerate((0, 1, 2, 6)):
+                    k[c, j] = 1.0
+            elif i < len(dims) - 2:
+                k[np.arange(min(a, b)), np.arange(min(a, b))] = 1.0
+            else:
+                k[0, 0], k[3, 1] = 1.0, -1.0
+        params[f"Dense_{i}"] = {"kernel": k,
+                                "bias": np.zeros(b, np.float32)}
+    return DistilledGuide(params, dims[1:-1])
+
+
+@pytest.mark.parametrize("case", [
+    "fb_missing", "fb_shape", "fb_dtype", "fb_device", "uniforms_missing",
+    "wide_student", "deep_student", "obs_dim", "not_student"])
+def test_guided_wrapper_rejects_what_the_kernel_does_not_take(case):
+    R, mb = 16, 4
+    o = torch.zeros((R, 3))
+    d = torch.ones((R, 3))
+    u = torch.zeros((mb, R, 2))
+    f = torch.zeros((mb, R))
+    guide = _student().as_guide_fn()
+    exc = ValueError
+    if case == "fb_missing":
+        f = None
+    elif case == "fb_shape":
+        f = torch.zeros((mb, R + 1))
+    elif case == "fb_dtype":
+        f, exc = f.double(), TypeError
+    elif case == "fb_device":
+        f, exc = f.to("meta"), TypeError
+    elif case == "uniforms_missing":
+        u = None
+    elif case == "wide_student":
+        guide = _student(width=cuda_path.MAX_STUDENT_WIDTH + 1).as_guide_fn()
+    elif case == "deep_student":
+        guide = _student(hidden_layers=3).as_guide_fn()
+    elif case == "obs_dim":
+        guide = _student(n_in=21).as_guide_fn()
+    elif case == "not_student":
+        guide = lambda obs: obs[:, :2]                          # noqa: E731
+    before = cuda_path.path_trace.launches
+    with pytest.raises(exc):
+        cuda_path.path_trace(o, d, u, _table(), max_bounces=mb,
+                             background=(2.0, 2.0, 5.0), guide=guide,
+                             fb_uniforms=f)
+    assert cuda_path.path_trace.launches == before
+    if case == "not_student":
+        scene = chandelier_scene(device="cpu")[0]
+        with pytest.raises(ValueError, match="student"):
+            trace_path(scene, o, d, max_bounces=mb, impl="kernel",
+                       guide_fn=guide, uniforms=u, fb_uniforms=f)
+
+
+def test_guided_kernel_impl_on_cpu_runs_plain_without_a_launch():
+    scene, _, _, _ = chandelier_scene(device="cpu")
+    o, d = _rays(301, seed=5)
+    g = torch.Generator().manual_seed(1)
+    u = torch.rand((4, 301, 2), generator=g)
+    f = torch.rand((4, 301), generator=g)
+    guide = _student("random", width=24).as_guide_fn()
+    kw = dict(max_bounces=4, mirror_threshold=0.9, uniforms=u,
+              fb_uniforms=f, guide_fn=guide, fb_prob=0.7)
+    before = (cuda_path.path_trace.launches, cuda_level.path_level.launches)
+    k_rgb, k_st = trace_path(scene, o, d, impl="kernel", **kw)
+    p_rgb, p_st = trace_path(scene, o, d, impl="plain", **kw)
+    h_rgb, h_st = trace_path(scene, o, d, impl="hybrid", **kw)
+    assert (cuda_path.path_trace.launches,
+            cuda_level.path_level.launches) == before
+    assert torch.equal(k_rgb, p_rgb) and torch.equal(h_rgb, p_rgb)
+    assert k_st.as_dict() == p_st.as_dict() == h_st.as_dict()
+    assert 0 < k_st.as_dict()["fb_used"]
+    counts = cuda_path.path_trace(
+        o, d, u, _table(), max_bounces=4, background=(2.0, 2.0, 5.0),
+        guide=guide, fb_uniforms=f)[1]
+    assert counts.dtype == torch.int32 and counts.shape == (301, 6)
+
+
+@pytest.mark.parametrize("case", [
+    "f64", "shape", "strided", "running_dtype", "running_shape", "u_shape",
+    "u_dtype", "spheres", "device"])
+def test_level_wrapper_rejects_what_the_kernel_does_not_take(case):
+    R = 16
+    o = torch.zeros((R, 3))
+    d = torch.ones((R, 3))
+    run = torch.ones(R, dtype=torch.bool)
+    u, table, exc = None, _table(), ValueError
+    if case == "f64":
+        o, exc = o.double(), TypeError
+    elif case == "shape":
+        o = torch.zeros((R, 4))
+    elif case == "strided":
+        d = torch.ones((3, R)).t()
+    elif case == "running_dtype":
+        run, exc = torch.ones(R, dtype=torch.uint8), TypeError
+    elif case == "running_shape":
+        run = torch.ones(R + 1, dtype=torch.bool)
+    elif case == "u_shape":
+        u = torch.zeros((R, 3))
+    elif case == "u_dtype":
+        u, exc = torch.zeros((R, 2), dtype=torch.float64), TypeError
+    elif case == "spheres":
+        table = _table(n_spheres=cuda_path.MAX_SPHERES + 1)
+    elif case == "device":
+        o, d = o.to("meta"), d.to("meta")
+        run, table = run.to("meta"), _table(device="meta")
+    before = cuda_level.path_level.launches
+    with pytest.raises(exc):
+        cuda_level.path_level(o, d, run, u, table)
+    assert cuda_level.path_level.launches == before
+
+
+def test_level_on_cpu_is_plain_and_passes_idle_lanes_through():
+    o, d = _rays(257, seed=6)
+    d = torch.nn.functional.normalize(d, dim=1)
+    run = torch.arange(257) % 3 != 0
+    u = torch.rand((257, 2), generator=torch.Generator().manual_seed(2))
+    table = _table(n_spheres=5, n_emissive=2)
+    before = cuda_level.path_level.launches
+    a = cuda_level.path_level(o, d, run, u, table, want_hit=True)
+    b = cuda_level.path_level_plain(o, d, run, u, table, want_hit=True)
+    assert cuda_level.path_level.launches == before
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    idle = ~run
+    assert (a.state[idle] == 0).all() and (a.rec[idle] == 0).all()
+    assert torch.equal(a.o_next[idle], o[idle])
+    assert torch.equal(a.d_next[idle], d[idle])
+    cont = (a.state & cuda_level.ST_CONT) != 0
+    assert (a.hit[~cont] == 0).all() and a.hit.shape == (257, 11)
+
+
+@pytest.mark.cuda
+def test_guided_and_level_kernels_match_plain_on_card():
+    """On the card: the guided kernel equals its plain version bit for bit
+    with a one-hot 22->128->128->2 student (f32 and bf16), and a random
+    student within tests/test_pallas_path.py:149-181's bounds (>= 90% of
+    samples equal, light hits within 0.9-1.12x); the level kernel equals
+    path_level_plain bit for bit; the hybrid equals the whole-trace kernel
+    with the one-hot student."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    scene, _, _, _ = chandelier_scene(device="cuda")
+    o, d = _rays(3601, seed=7, device="cuda")
+    g = torch.Generator("cuda").manual_seed(3)
+    u = torch.rand((6, 3601, 2), device="cuda", generator=g)
+    f = torch.rand((6, 3601), device="cuda", generator=g)
+    kw = dict(max_bounces=6, mirror_threshold=0.9, uniforms=u,
+              fb_uniforms=f, fb_prob=1.0)
+    for kind in ("one_hot", "random"):
+        for dtype in (None, "auto"):
+            guide = _student(kind, width=128).as_guide_fn(dtype=dtype)
+            before = cuda_path.path_trace.launches
+            k_rgb, k_st = trace_path(scene, o, d, impl="kernel",
+                                     guide_fn=guide, **kw)
+            p_rgb, p_st = trace_path(scene, o, d, impl="plain",
+                                     guide_fn=guide, **kw)
+            h_rgb, h_st = trace_path(scene, o, d, impl="hybrid",
+                                     guide_fn=guide, **kw)
+            torch.cuda.synchronize()
+            assert cuda_path.path_trace.launches == before + 1
+            k, p = k_rgb.cpu().numpy(), p_rgb.cpu().numpy()
+            assert k_st.as_dict()["fb_used"] > 0
+            if kind == "one_hot":
+                np.testing.assert_array_equal(k, p)
+                np.testing.assert_array_equal(h_rgb.cpu().numpy(), k)
+                assert k_st.as_dict() == p_st.as_dict() == h_st.as_dict()
+            else:
+                assert (k == p).all(-1).mean() >= 0.9
+                a, b = int(k_st.light_hits), int(p_st.light_hits)
+                assert a == b or (b > 0 and 0.9 <= a / b <= 1.12)
+    dn = torch.nn.functional.normalize(d, dim=1)
+    run = torch.rand(3601, device="cuda", generator=g) < 0.8
+    table = cuda_path.path_table(scene_spec(scene), emissive_indices(scene),
+                                 0.9, "cuda")
+    for uu, want_hit in ((u[0], True), (None, False)):
+        before = cuda_level.path_level.launches
+        a = cuda_level.path_level(o, dn, run, uu, table, want_hit=want_hit)
+        b = cuda_level.path_level_plain(o, dn, run, uu, table,
+                                        want_hit=want_hit)
+        torch.cuda.synchronize()
+        assert cuda_level.path_level.launches == before + 1
+        assert all((x is None and y is None) or torch.equal(x, y)
+                   for x, y in zip(a, b))

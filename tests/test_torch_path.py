@@ -7,7 +7,8 @@ against the JAX tracers on the same rays and the same uniforms.
 * diffuse bounces at ``mirror_threshold=0.9`` on JAX-drawn uniforms: exact
   vs lean, and within test_pallas_path.py's bounds vs pallas (its kernel
   samples cosθ = √u₀ without acos);
-* a guide, or a diffuse scene without uniforms, is refused.
+* a guide that is not a distilled student is refused by the kernel impls,
+  and a diffuse scene without uniforms is refused.
 
 The wrapper's own checks and the kernel-vs-plain test on a card are in
 tests/test_torch_kernel.py, which imports no JAX.
@@ -113,10 +114,15 @@ def test_fast_precision_exact_vs_lean():
 
 
 def test_guide_not_ported_yet():
+    """Guided tracing is ported (tests/test_torch_guided.py); the kernel
+    and hybrid impls take distilled students only, as the JAX Pallas impl
+    does (trace/path.py:273-280)."""
     js = jax_library.chandelier_scene()[0]
     o, d = _rays(4, seed=0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        _port(js, o, d, max_bounces=2, guide_fn=lambda obs: obs)
+    for impl in ("kernel", "hybrid"):
+        with pytest.raises(ValueError, match="student"):
+            _port(js, o, d, max_bounces=2, impl=impl,
+                  guide_fn=lambda obs: obs)
 
 
 def test_diffuse_needs_uniforms_or_generator():

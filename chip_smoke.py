@@ -14,8 +14,10 @@ just after:
 * the guided path tracer: the chandelier frame at 800x600, 8 spp, 8
   bounces, mirror_threshold=0.9, fb_prob=1.0, guided by the shipped
   distilled student (22->128->128->2, bf16), through ``render_path`` with
-  impl="kernel" (the student inside the path kernel) and impl="hybrid"
-  (the per-level kernel, the student between levels).
+  impl="kernel" (the student inside the path kernel: a bf16 student on the
+  tensor cores in csrc/path_guided.cu, an f32 one as scalar multiply-adds
+  in csrc/path_trace.cu) and impl="hybrid" (the per-level kernel, the
+  student between levels).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, times everything on the card's
@@ -52,7 +54,8 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "showcase" / "parity_fullres" / "chandelier_800x600_ref.npy"
 WHITTED_GOLDEN = (ROOT / "showcase" / "parity_fullres" /
                   "true_original_601_ref.npy")
-SOURCES = ("path_trace", "whitted_trace", "nearest_hit", "path_level")
+SOURCES = ("path_trace", "path_guided", "whitted_trace", "nearest_hit",
+           "path_level")
 SEED = 0
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
@@ -169,6 +172,8 @@ def stats_close(a, b, rel):
 def reset_counts():
     """Every kernel's launch count to 0."""
     cuda_path.path_trace.launches = 0
+    for route in cuda_path.path_trace.route_launches:
+        cuda_path.path_trace.route_launches[route] = 0
     cuda_whitted.whitted_trace.launches = 0
     cuda_intersect.nearest_hit.launches = 0
     cuda_level.path_level.launches = 0
@@ -406,11 +411,12 @@ def whitted_phases(dev, card):
          "bound_by": nh_by, "library_ms": None}]
 
 
-def student_params(kind, width=G_WIDTH, seed=SEED):
-    """A 22->width->width->2 student: ``"one_hot"`` (px, py, pz and nx
-    through the hidden layers to a0 = px, a1 = -nx; any summation order
-    gives the same floats) or ``"random"`` (seeded dense weights)."""
-    dims = (22, width, width, 2)
+def student_params(kind, width=G_WIDTH, seed=SEED, hidden=2):
+    """A 22->width(->width)->2 student with ``hidden`` layers:
+    ``"one_hot"`` (px, py, pz and nx through the hidden layers to a0 = px,
+    a1 = -nx; any summation order gives the same floats) or ``"random"``
+    (seeded dense weights)."""
+    dims = (22,) + (width,) * hidden + (2,)
     if kind == "random":
         rng = np.random.RandomState(seed)
         return {f"Dense_{i}": {
@@ -422,10 +428,20 @@ def student_params(kind, width=G_WIDTH, seed=SEED):
         k0[c, j] = 1.0
     k2 = np.zeros((width, 2), np.float32)
     k2[0, 0], k2[3, 1] = 1.0, -1.0
-    return {"Dense_0": {"kernel": k0, "bias": np.zeros(width, np.float32)},
-            "Dense_1": {"kernel": np.eye(width, dtype=np.float32),
-                        "bias": np.zeros(width, np.float32)},
-            "Dense_2": {"kernel": k2, "bias": np.zeros(2, np.float32)}}
+    kernels = [k0] + [np.eye(width, dtype=np.float32)] * (hidden - 1) + [k2]
+    return {f"Dense_{i}": {"kernel": k,
+                           "bias": np.zeros(k.shape[1], np.float32)}
+            for i, k in enumerate(kernels)}
+
+
+def student(kind, width=G_WIDTH, hidden=2, dtype="auto"):
+    """``student_params`` as a guide (bf16 for ``dtype="auto"``)."""
+    return DistilledGuide(student_params(kind, width, hidden=hidden),
+                          (width,) * hidden).as_guide_fn(dtype=dtype)
+
+
+def route_counts():
+    return dict(cuda_path.path_trace.route_launches)
 
 
 def hits_close(a, b):
@@ -437,7 +453,7 @@ def compare_guided(rgb_a, st_a, rgb_b, st_b, exact):
     """Samples ``[R, 3]`` and stats of two guided traces: bit for bit when
     ``exact``, else the guided bounds.  Returns ``(ok, report)``."""
     equal = bool(torch.equal(rgb_a, rgb_b)) and st_a == st_b
-    frac = float((rgb_a == rgb_b).all(-1).float().mean())
+    frac = float((rgb_a == rgb_b).all(-1).double().mean())
     ok = bool(torch.isfinite(rgb_a).all()) and (equal or (
         not exact and frac >= G_MIN_EQUAL
         and hits_close(st_a["light_hits"], st_b["light_hits"])
@@ -449,12 +465,16 @@ def compare_guided(rgb_a, st_a, rgb_b, st_b, exact):
 
 def guided_phases(dev, card, scene, params, libs):
     """The guided path's phases; returns its two ``kernels`` entries."""
+    guide = guide_for("chandelier", W, H, STUDENTS_DIR)
+    check(guide is not None, f"no shipped student in {STUDENTS_DIR}")
     emit({"phase": "guided_build", "libraries": {
         n: {"library": str(libs[n].path.relative_to(ROOT)),
             "nvcc_seconds": libs[n].build_seconds,
             "ptxas": [ln.strip() for ln in libs[n].build_log.splitlines()
                       if "registers" in ln or "spill" in ln]}
-        for n in ("path_trace", "path_level")}})
+        for n in ("path_trace", "path_guided", "path_level")},
+        "path_guided_launch_shipped_student":
+            cuda_path.guided_occupancy(guide)})
     gen = torch.Generator(dev).manual_seed(SEED + 10)
     jitter = torch.rand((SPP, H, W, 2), device=dev, generator=gen)
     o, d = perspective_rays(W, H, fov=params["fov"],
@@ -477,13 +497,13 @@ def guided_phases(dev, card, scene, params, libs):
     t0 = time.perf_counter()
     for kind in ("one_hot", "random"):
         for dtype in (None, "auto"):
-            guide = DistilledGuide(student_params(kind), (G_WIDTH, G_WIDTH)
-                                   ).as_guide_fn(dtype=dtype)
-            rk, sk = trace("kernel", guide)
-            rp, sp = trace("plain", guide)
+            g = student(kind, dtype=dtype)
+            rk, sk = trace("kernel", g)
+            rp, sp = trace("plain", g)
             ok, rep = compare_guided(rk, sk, rp, sp, exact=kind == "one_hot")
             emit({"phase": "guided_one_hot", "student": kind,
                   "dtype": "bfloat16" if dtype else "float32",
+                  "route": cuda_path.guided_route(g),
                   "frame": f"{W}x{H}@{SPP}spp/{BOUNCES}", **rep,
                   "seconds": time.perf_counter() - t0})
             check(ok, f"guided kernel vs plain, {kind} student, {dtype}: "
@@ -493,8 +513,6 @@ def guided_phases(dev, card, scene, params, libs):
     # guided_main: the shipped student through render_path, kernel then
     # plain then hybrid on the same draws.
     t0 = time.perf_counter()
-    guide = guide_for("chandelier", W, H, STUDENTS_DIR)
-    check(guide is not None, f"no shipped student in {STUDENTS_DIR}")
     fkw = dict(width=W, height=H, spp=SPP, max_bounces=BOUNCES,
                fov=params["fov"], camera_position=params["camera_position"],
                mirror_threshold=G_THRESHOLD, background=BG, device=dev,
@@ -507,11 +525,16 @@ def guided_phases(dev, card, scene, params, libs):
             generator=torch.Generator(dev).manual_seed(SEED + 11), **fkw)
         torch.cuda.synchronize()
         launches[impl] = {"path_trace": cuda_path.path_trace.launches,
+                          "path_trace_routes": route_counts(),
                           "path_level": cuda_level.path_level.launches}
         frames[impl] = (img, st.as_dict())
     img_k, sk = frames["kernel"]
     check(launches["kernel"]["path_trace"] >= 1,
           "the guided path launched no path_trace kernel")
+    check(launches["kernel"]["path_trace_routes"]["bf16_mma"]
+          == launches["kernel"]["path_trace"],
+          f"the shipped bf16 student's frame left the tensor-core route: "
+          f"{launches['kernel']}")
     check(launches["hybrid"]["path_level"] >= BOUNCES,
           "the hybrid launched too few path_level kernels")
     check(tuple(img_k.shape) == (H, W, 3) and bool(torch.isfinite(img_k)
@@ -530,15 +553,88 @@ def guided_phases(dev, card, scene, params, libs):
         main_rep[impl] = {"bit_equal": bool(torch.equal(img_k, img))
                           and sk == st, "pixels_equal_fraction": pix,
                           "stats": st}
+    # The same student, sample by sample, on the frame's draws.
+    rk, sk_s = trace("kernel", guide)
+    rp, sp_s = trace("plain", guide)
+    ok_s, rep_s = compare_guided(rk, sk_s, rp, sp_s, exact=False)
     emit({"phase": "guided_main", "frame": f"{W}x{H}@{SPP}spp/{BOUNCES}",
           "student": "fb_chandelier_distilled.npz (bf16)",
           "launches": launches, "stats_kernel": sk,
           "plain_vs_kernel": main_rep["plain"],
           "hybrid_vs_kernel": main_rep["hybrid"],
+          "samples_kernel_vs_plain": {k: v for k, v in rep_s.items()
+                                      if k != "stats_reference"},
           "seconds": time.perf_counter() - t0})
     for impl in ("plain", "hybrid"):
         check(main_ok[impl], f"guided frame, kernel vs {impl}: "
               f"{main_rep[impl]}")
+    check(ok_s, f"guided samples, kernel vs plain: {rep_s}")
+
+    # guided_edges: the tensor-core route's edge cases on the frame's
+    # draws, kernel against plain and hybrid against kernel, one-hot
+    # students bit for bit and dense ones within the guided bounds: a
+    # ragged ray count (3,601 of the frame's rays, a seeded choice),
+    # fb_prob 0.5 (warps with every number of guided lanes), one hidden
+    # layer, width 24 (not a multiple of 16); then, at fb_prob 0, the
+    # route against the unguided kernel on the same uniforms.
+    t0 = time.perf_counter()
+    pick = torch.randperm(R, device=dev, generator=torch.Generator(
+        dev).manual_seed(SEED + 13))[:3601]
+    ragged = (o[pick].contiguous(), d[pick].contiguous(),
+              u[:, pick].contiguous(), f[:, pick].contiguous())
+    full = (o, d, u, f)
+    edges, edges_ok = [], True
+    for name, kind, width, hidden, fb_prob, rays in (
+            ("ragged_3601", "one_hot", G_WIDTH, 2, 1.0, ragged),
+            ("fb_prob_0.5", "one_hot", G_WIDTH, 2, 0.5, full),
+            ("one_hidden_layer", "one_hot", G_WIDTH, 1, 1.0, full),
+            ("width_24", "one_hot", 24, 2, 1.0, full),
+            ("ragged_3601", "random", G_WIDTH, 2, 0.5, ragged),
+            ("one_hidden_layer", "random", G_WIDTH, 1, 1.0, full),
+            ("width_24", "random", 24, 2, 0.5, full)):
+        g = student(kind, width, hidden)
+        eo, ed, eu, ef = rays
+        ekw = dict(max_bounces=BOUNCES, mirror_threshold=G_THRESHOLD,
+                   background=BG, uniforms=eu, fb_uniforms=ef,
+                   fb_prob=fb_prob, guide_fn=g)
+        before = route_counts()["bf16_mma"]
+        out = {}
+        for impl in ("kernel", "plain", "hybrid"):
+            rgb, st = trace_path(scene, eo, ed, impl=impl, **ekw)
+            out[impl] = (rgb, st.as_dict())
+        torch.cuda.synchronize()
+        routed = route_counts()["bf16_mma"] - before
+        exact = kind == "one_hot"
+        ok_p, rep_p = compare_guided(*out["kernel"], *out["plain"], exact)
+        ok_h, rep_h = compare_guided(*out["hybrid"], *out["kernel"], exact)
+        keep = ("bit_equal", "samples_equal_fraction", "max_abs_err")
+        edges.append({
+            "case": name, "student": f"{kind} 22->"
+            + "->".join([str(width)] * hidden) + "->2 bf16",
+            "fb_prob": fb_prob, "rays": eo.shape[0],
+            "fb_used": out["kernel"][1]["fb_used"],
+            "bf16_mma_launches": routed,
+            "kernel_vs_plain": {k: rep_p[k] for k in keep},
+            "hybrid_vs_kernel": {k: rep_h[k] for k in keep}})
+        edges_ok &= (ok_p and ok_h and routed == 1
+                     and out["kernel"][1]["fb_used"] > 0)
+    table = cuda_path.path_table(scene_spec(scene), emissive_indices(scene),
+                                 G_THRESHOLD, dev)
+    rgb0, cnt0 = cuda_path.path_trace(o, d, u, table, max_bounces=BOUNCES,
+                                      background=BG, guide=guide,
+                                      fb_uniforms=f, fb_prob=0.0)
+    rgb_u, cnt_u = cuda_path.path_trace(o, d, u, table, max_bounces=BOUNCES,
+                                        background=BG)
+    torch.cuda.synchronize()
+    fb0_equal = (bool(torch.equal(rgb0, rgb_u))
+                 and bool(torch.equal(cnt0[:, :4], cnt_u))
+                 and not bool(cnt0[:, 4:].any()))
+    emit({"phase": "guided_edges", "cells": edges,
+          "fb_prob_0_equals_unguided_kernel": fb0_equal,
+          "seconds": time.perf_counter() - t0})
+    check(edges_ok, f"tensor-core route edge cases: {edges}")
+    check(fb0_equal, "the tensor-core route at fb_prob 0 differs from the "
+          "unguided kernel on the same uniforms")
 
     # guided_hits: small-light hits, guided over traditional, both shipped
     # chandelier students, at bench.py's two guided shapes.
@@ -621,8 +717,6 @@ def guided_phases(dev, card, scene, params, libs):
     # guided_times: both kernels at the guided frame's shapes on the card's
     # clock, their bounds from this run's data, the frames' wall times.
     t0 = time.perf_counter()
-    table = cuda_path.path_table(scene_spec(scene), emissive_indices(scene),
-                                 G_THRESHOLD, dev)
     gkw = dict(max_bounces=BOUNCES, background=BG, guide=guide,
                fb_uniforms=f, fb_prob=G_FB_PROB)
     _, cnt = cuda_path.path_trace(o, d, u, table, **gkw)
@@ -640,6 +734,26 @@ def guided_phases(dev, card, scene, params, libs):
     t_bytes = g_bytes / PEAK_BYTES * 1e3
     g_bound = max(t_ops, t_bytes)
     g_by = "operations" if t_ops >= t_bytes else "bytes"
+    # The split: the same kernel at fb_prob 0, no lane guided (its paths
+    # take cosine bounces instead, so its ray-levels differ; both counted).
+    gkw0 = dict(gkw, fb_prob=0.0)
+    _, cnt0 = cuda_path.path_trace(o, d, u, table, **gkw0)
+    g0_ms = cuda_ms(lambda: cuda_path.path_trace(o, d, u, table, **gkw0), 5)
+    g0_bound, g0_by, f32_ops0, _ = bound_ms(cnt0, n_sph, n_em, BOUNCES, R)
+    levels = {name: int(torch.clamp_max(c[:, 0], BOUNCES).sum(
+        dtype=torch.int64)) for name, c in (("fb_prob_1", cnt),
+                                            ("fb_prob_0", cnt0))}
+    # The unguided kernel (one thread a ray) on that same work: guided_edges
+    # holds the two equal.
+    ukw = dict(max_bounces=BOUNCES, background=BG)
+    cuda_path.path_trace(o, d, u, table, **ukw)
+    u0_ms = cuda_ms(lambda: cuda_path.path_trace(o, d, u, table, **ukw), 5)
+    # The shipped student in f32 on the scalar route (csrc/path_trace.cu).
+    gkw32 = dict(gkw, guide=DistilledGuide.load(
+        STUDENTS_DIR / "fb_chandelier_distilled.npz").as_guide_fn(None))
+    cuda_path.path_trace(o, d, u, table, **gkw32)
+    g32_ms = cuda_ms(lambda: cuda_path.path_trace(o, d, u, table, **gkw32),
+                     2)
 
     def level_frame():
         for args, kw, _ in recorded:
@@ -683,6 +797,13 @@ def guided_phases(dev, card, scene, params, libs):
           "path_trace_guided_bound_bytes": g_bytes,
           "path_trace_guided_bound_share": g_bound / g_ms,
           "guided_ray_levels": fb_used,
+          "path_trace_guided_fb_prob_0_ms": g0_ms,
+          "path_trace_guided_fb_prob_0_bound_ms": g0_bound,
+          "path_trace_guided_fb_prob_0_bound_by": g0_by,
+          "path_trace_guided_fb_prob_0_bound_f32_ops": f32_ops0,
+          "ray_levels_run": levels,
+          "path_trace_unguided_fb_prob_0_work_ms": u0_ms,
+          "path_trace_guided_f32_student_ms": g32_ms,
           "path_level_ms_per_frame": l_ms, "path_level_launches": len(recorded),
           "path_level_plain_ms_per_frame": l_plain_ms,
           "path_level_bound_ms": l_bound, "path_level_bound_by": l_by,
@@ -696,7 +817,7 @@ def guided_phases(dev, card, scene, params, libs):
 
     return [
         {"name": "path_trace_guided", "route": "cuda",
-         "source": "raytracer_tpu_torch/csrc/path_trace.cu",
+         "source": "raytracer_tpu_torch/csrc/path_guided.cu",
          "replaces": "raytracer_tpu/core/pallas_path.py:142",
          "launches": launches["kernel"]["path_trace"],
          "max_abs_err": float((frames["kernel"][0]

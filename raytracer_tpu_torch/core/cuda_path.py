@@ -2,9 +2,16 @@
 
 Replaces ``raytracer_tpu/core/pallas_path.py::_kernel``, unguided and
 guided (reached through ``trace_path_pallas_impl``; the guided branch runs
-the distilled student inside the kernel, ``_student_mlp``).  The CUDA
-kernel is ``csrc/path_trace.cu``; its note says what bounds it on an H100
-and what its design does about that.
+the distilled student inside the kernel, ``_student_mlp``).  Three routes,
+each a CUDA kernel whose note says what bounds it on an H100 and what its
+design does about that (``guided_route`` picks):
+
+* unguided: ``csrc/path_trace.cu``;
+* a bf16 student (``dtype="auto"``, the deployed mode): ``csrc/
+  path_guided.cu``, the student on the tensor cores (``csrc/
+  student_mma.cuh``) over the guided lanes of a warp, packed together;
+* an f32 student (``dtype=None``): ``csrc/path_trace.cu`` with the scalar
+  student of ``csrc/student.cuh``.
 
 ``path_trace`` launches the kernel for CUDA tensors and raises on anything
 it does not take; for CPU tensors, and only for them, it runs
@@ -40,6 +47,9 @@ MAX_EMISSIVE = 64
 MAX_BOUNCES = 16
 MAX_STUDENT_WIDTH = 128
 MAX_STUDENT_HIDDEN = 2
+# csrc/student_mma.cuh: the observation padded to two k-steps of 16, the
+# output layer to one n-tile of 8.
+MMA_OBS_PAD, MMA_OUT_PAD = 32, 8
 OBS_DIM, ACTION_DIM = 22, 2
 FLAG_EMISSIVE, FLAG_SMALL, FLAG_MIRROR = 1, 2, 4
 SMALL_LIGHT_RADIUS = 0.5    # small light: emissive with radius < 0.5
@@ -163,7 +173,23 @@ def student_dims(guide):
     return len(hidden), pad[0], pad[1] if len(pad) == 2 else 0
 
 
+def student_dims_mma(guide):
+    """``(n_hidden, h1, h2)`` of a student for the tensor-core route: the
+    widths padded to multiples of 16, the depth of an m16n8k16 k-step."""
+    n_hidden, h1, h2 = student_dims(guide)
+    return n_hidden, -(-h1 // 16) * 16, -(-h2 // 16) * 16
+
+
+def guided_route(guide) -> str:
+    """The kernel a student takes: ``"bf16_mma"`` (``csrc/path_guided.cu``)
+    for a bf16 student, ``"f32"`` (``csrc/path_trace.cu`` with
+    ``csrc/student.cuh``) for an f32 one; raises for anything else."""
+    student_dims(guide)
+    return "bf16_mma" if guide.dtype == "bfloat16" else "f32"
+
+
 _PACKED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_PACKED_MMA: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def pack_student(guide, device) -> torch.Tensor:
@@ -188,6 +214,48 @@ def pack_student(guide, device) -> torch.Tensor:
     return per_dev[device]
 
 
+def pack_student_mma(guide, device) -> torch.Tensor:
+    """A bf16 student in ``csrc/student_mma.cuh``'s layout, bfloat16 on
+    ``device`` (cached per guide and device): each layer's kernel ``[K,
+    N]``, ``K`` padded with zero rows (22 to 32, a hidden width to the
+    previous layer's padded width) and ``N`` with zero units (a hidden
+    width to a multiple of 16, the output to 8), stored in 8-wide k-chunks
+    (element ``(k, n)`` at ``((k // 8) * N + n) * 8 + k % 8``, the order
+    ``ldmatrix`` reads), then its bias ``[N]``."""
+    if guided_route(guide) != "bf16_mma":
+        raise ValueError(f"student dtype {guide.dtype!r}: the tensor-core "
+                         "route takes bfloat16 students only")
+    per_dev = _PACKED_MMA.setdefault(guide, {})
+    device = torch.device(device)
+    if device not in per_dev:
+        n_hidden, h1, h2 = student_dims_mma(guide)
+        outs = [h1, h2][:n_hidden] + [MMA_OUT_PAD]
+        parts, rows = [], MMA_OBS_PAD
+        for (k, b), out in zip(guide.layers, outs):
+            kp = torch.zeros((rows, out), dtype=torch.float32)
+            kp[:k.shape[0], :k.shape[1]] = k
+            bp = torch.zeros(out, dtype=torch.float32)
+            bp[:b.shape[0]] = b
+            parts += [kp.reshape(rows // 8, 8, out).transpose(1, 2)
+                      .reshape(-1), bp]
+            rows = out
+        # The layers hold bf16 values already: the cast is exact.
+        per_dev[device] = torch.cat(parts).to(torch.bfloat16).to(device)
+    return per_dev[device]
+
+
+def student_args(guide, route: str, device) -> tuple:
+    """The student's launch arguments on a route: its packing's pointer
+    (cached per guide and device, so it outlives the launch) and dims;
+    ``(None, 0, 0, 0)`` unguided."""
+    if route == "bf16_mma":
+        return (pack_student_mma(guide, device).data_ptr(),
+                *student_dims_mma(guide))
+    if route == "f32":
+        return pack_student(guide, device).data_ptr(), *student_dims(guide)
+    return None, 0, 0, 0
+
+
 def path_trace(origins: torch.Tensor, dirs: torch.Tensor,
                uniforms: Optional[torch.Tensor], table: PathTable, *,
                max_bounces: int, background: Sequence[float],
@@ -200,8 +268,10 @@ def path_trace(origins: torch.Tensor, dirs: torch.Tensor,
     bounce is possible (a diffuse lane then reflects, as in the JAX
     tracers).  ``guide``: a distilled student (``StudentGuide``, at most
     two hidden layers of at most 128 units), with ``fb_uniforms
-    [max_bounces, R]`` float32 and ``fb_prob``.  Returns ``(rgb [R, 3]
-    float32, counts [R, 4] int32)``, guided ``[R, 6]``."""
+    [max_bounces, R]`` float32 and ``fb_prob``; a bf16 student runs on the
+    tensor cores, an f32 one as scalar multiply-adds (``guided_route``).
+    Returns ``(rgb [R, 3] float32, counts [R, 4] int32)``, guided ``[R,
+    6]``."""
     _check(origins, dirs, uniforms, table, max_bounces, guide, fb_uniforms)
     dev = origins.device
     kw = dict(max_bounces=max_bounces, background=background, fast=fast,
@@ -210,49 +280,76 @@ def path_trace(origins: torch.Tensor, dirs: torch.Tensor,
         return path_trace_plain(origins, dirs, uniforms, table, **kw)
     if dev.type != "cuda":
         raise ValueError(f"path_trace runs on cuda or cpu, not {dev}")
-    lib = _library()
     R = origins.shape[0]
     rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
     counts = torch.empty((R, 6 if guide is not None else 4),
                          dtype=torch.int32, device=dev)
+    route = "unguided" if guide is None else guided_route(guide)
     bg = [float(b) for b in background]
-    if guide is not None:
-        n_hidden, h1, h2 = student_dims(guide)
-        packed = pack_student(guide, dev)
-        sargs = (packed.data_ptr(), n_hidden, h1, h2,
-                 int(guide.dtype == "bfloat16"))
-    else:
-        sargs = (None, 0, 0, 0, 0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.path_trace_launch(
-            origins.data_ptr(), dirs.data_ptr(),
+    head = (origins.data_ptr(), dirs.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
             None if fb_uniforms is None else fb_uniforms.data_ptr(),
             float(fb_prob), table.spheres.data_ptr(), table.flags.data_ptr(),
             table.emissive.data_ptr(), len(table.spec),
             len(table.emissive_idx), R, max_bounces, bg[0], bg[1], bg[2],
-            int(fast), *sargs, rgb.data_ptr(), counts.data_ptr(), stream)
+            int(fast))
+    sargs = student_args(guide, route, dev)
+    tail = (rgb.data_ptr(), counts.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "bf16_mma":
+            next_tile = torch.zeros(1, dtype=torch.int64, device=dev)
+            err = _library("path_guided").path_guided_launch(
+                *head, *sargs, *tail, next_tile.data_ptr(), stream)
+        else:
+            err = _library("path_trace").path_trace_launch(
+                *head, *sargs, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"path_trace kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"path_trace kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     path_trace.launches += 1
+    path_trace.route_launches[route] += 1
     return rgb, counts
 
 
-path_trace.launches = 0      # kernel launches in this process
+path_trace.launches = 0      # kernel launches in this process, all routes
+# ... and by route (guided_route; "unguided" without a student).
+path_trace.route_launches = {"unguided": 0, "f32": 0, "bf16_mma": 0}
 
 
-def _library() -> ctypes.CDLL:
-    lib = native.load("path_trace").lib
-    fn = lib.path_trace_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f = ctypes.c_float
-        fn.argtypes = [p, p, p, p, f, p, p, p, i, i, ctypes.c_longlong, i,
-                       f, f, f, i, p, i, i, i, i, p, p, p]
-        fn.restype = ctypes.c_int
+# Each library's C functions and their argument types, one letter each:
+# p pointer, i int, f float, L long long, l / n pointers to long long / int.
+_SIGNATURES = {
+    "path_trace": {"path_trace_launch": "ppppfpppiiLifffipiiippp"},
+    "path_guided": {"path_guided_launch": "ppppfpppiiLifffipiiipppp",
+                    "path_guided_occupancy": "iiiln"},
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "L": ctypes.c_longlong,
+           "l": ctypes.POINTER(ctypes.c_longlong),
+           "n": ctypes.POINTER(ctypes.c_int)}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built and loaded, its functions typed."""
+    lib = native.load(name).lib
+    for fn_name, sig in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = [_CTYPES[c] for c in sig]
+            fn.restype = ctypes.c_int
     return lib
+
+
+def guided_occupancy(guide) -> dict:
+    """The tensor-core route's launch for this bf16 student on the current
+    card: dynamic shared memory a block and resident blocks an SM."""
+    smem, per_sm = ctypes.c_longlong(0), ctypes.c_int(0)
+    err = _library("path_guided").path_guided_occupancy(
+        *student_dims_mma(guide), ctypes.byref(smem), ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"path_guided occupancy query: CUDA error {err}")
+    return {"dynamic_smem_bytes": smem.value, "blocks_per_sm": per_sm.value}
 
 
 class Level(NamedTuple):

@@ -2,7 +2,9 @@
 //
 // Replaces raytracer_tpu/core/pallas_path.py::_kernel, both branches
 // (reached through trace_path_pallas_impl): unguided, and guided with the
-// distilled student inside the kernel (_student_mlp, student_guide_spec).
+// distilled student inside the kernel (_student_mlp, student_guide_spec)
+// for an f32 student.  A bf16 student, the deployed mode, takes
+// csrc/path_guided.cu, the student on the tensor cores.
 // Semantics are those of raytracer_tpu/trace/path.py::_trace_path_lean_impl,
 // op for op: for each level, a nearest-sphere sweep by |t| with in-sweep
 // attribute selection; direct light as the sum over emissive spheres of
@@ -32,13 +34,13 @@
 // masked ragged tail; the scene table (sphere rows with their material
 // columns, flags, emissive list) is staged in shared memory once per block;
 // a ray leaves the level loop as soon as it terminates; the level records
-// for the fold stay in thread-local storage.  Guided, the student's weights
-// (bf16 or f32 values, about 40 KB or 80 KB at 22->128->128->2) and one
-// activation tile a warp sit in dynamic shared memory, and the grid is cut
-// to the blocks that fit on the card at once, each looping over ray tiles,
-// so every block stages the weights once.  The MLP runs for the lanes of a
-// warp that take the guide at the same level, together.  Making it fast
-// (mma.sync / wgmma, warp coherence, fewer divides) is later work.
+// for the fold stay in thread-local storage.  Guided, the student's f32
+// weights (about 80 KB at 22->128->128->2) and one activation tile a warp
+// sit in dynamic shared memory, and the grid is cut to the blocks that fit
+// on the card at once, each looping over ray tiles, so every block stages
+// the weights once.  The MLP runs for the lanes of a warp that take the
+// guide at the same level, together, as scalar multiply-adds: in f32 the
+// tensor cores' TF32 would change its results.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -253,14 +255,14 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // Returns a cudaError_t: cudaErrorInvalidValue for arguments beyond the
 // compile-time capacities, else the launch's status.  student: null
-// (unguided), or the packed student with its dims (n_hidden 1 or 2, padded
-// widths h1, h2) and bf16 != 0 for the bf16 mode.
+// (unguided), or the packed f32 student with its dims (n_hidden 1 or 2,
+// padded widths h1, h2).  A bf16 student takes csrc/path_guided.cu.
 extern "C" int path_trace_launch(
     const float* origins, const float* dirs, const float* uniforms,
     const float* fb_uniforms, float fb_prob, const float* spheres,
     const int* flags, const int* emissive, int n_spheres, int n_emissive,
     long long n_rays, int max_bounces, float bg_r, float bg_g, float bg_b,
-    int fast, const float* student, int n_hidden, int h1, int h2, int bf16,
+    int fast, const float* student, int n_hidden, int h1, int h2,
     float* rgb, int* counts, void* stream) {
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || n_emissive < 0 ||
       n_emissive > path::kMaxEmissive || max_bounces < 1 ||
@@ -278,6 +280,5 @@ extern "C" int path_trace_launch(
            fast, bg_r, bg_g, bg_b, fb_prob,
            student::Dims{n_hidden, h1, n_hidden == 2 ? h2 : 0}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (student != nullptr && bf16) ? launch<__nv_bfloat16>(p, s)
-                                      : launch<float>(p, s);
+  return launch<float>(p, s);
 }

@@ -454,3 +454,59 @@ def test_guided_and_level_kernels_match_plain_on_card():
         assert cuda_level.path_level.launches == before + 1
         assert all((x is None and y is None) or torch.equal(x, y)
                    for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_edge_cases_match_plain_on_card():
+    """On the card, the bf16 students' tensor-core route
+    (csrc/path_guided.cu): one-hot students bit for bit against the plain
+    version, and the hybrid equal to the whole trace, on a ragged ray count,
+    at fb_prob 0.5 (warps holding every number of guided lanes), with one
+    hidden layer and at width 24 (not a multiple of 16); seeded dense
+    students within tests/test_pallas_path.py:149-181's bounds; at
+    fb_prob 0 the route equals the unguided kernel on the same uniforms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    scene, _, _, _ = chandelier_scene(device="cuda")
+    o, d = _rays(3601, seed=8, device="cuda")
+    g = torch.Generator("cuda").manual_seed(4)
+    u = torch.rand((6, 3601, 2), device="cuda", generator=g)
+    f = torch.rand((6, 3601), device="cuda", generator=g)
+    kw = dict(max_bounces=6, mirror_threshold=0.9, uniforms=u,
+              fb_uniforms=f)
+    cases = [("one_hot", 128, 2, 1.0), ("one_hot", 128, 2, 0.5),
+             ("one_hot", 128, 1, 0.5), ("one_hot", 24, 2, 0.5),
+             ("random", 128, 1, 0.5), ("random", 24, 2, 1.0)]
+    for kind, width, layers, fb_prob in cases:
+        guide = _student(kind, width=width, hidden_layers=layers
+                         ).as_guide_fn()
+        assert cuda_path.guided_route(guide) == "bf16_mma"
+        before = cuda_path.path_trace.route_launches["bf16_mma"]
+        k_rgb, k_st = trace_path(scene, o, d, impl="kernel", guide_fn=guide,
+                                 fb_prob=fb_prob, **kw)
+        p_rgb, p_st = trace_path(scene, o, d, impl="plain", guide_fn=guide,
+                                 fb_prob=fb_prob, **kw)
+        torch.cuda.synchronize()
+        assert cuda_path.path_trace.route_launches["bf16_mma"] == before + 1
+        k, p = k_rgb.cpu().numpy(), p_rgb.cpu().numpy()
+        assert k_st.as_dict()["fb_used"] > 0, (kind, width, layers)
+        if kind == "one_hot":
+            h_rgb, h_st = trace_path(scene, o, d, impl="hybrid",
+                                     guide_fn=guide, fb_prob=fb_prob, **kw)
+            np.testing.assert_array_equal(k, p)
+            np.testing.assert_array_equal(h_rgb.cpu().numpy(), k)
+            assert k_st.as_dict() == p_st.as_dict() == h_st.as_dict()
+        else:
+            assert (k == p).all(-1).mean() >= 0.9
+            a, b = int(k_st.light_hits), int(p_st.light_hits)
+            assert a == b or (b > 0 and 0.9 <= a / b <= 1.12)
+    table = cuda_path.path_table(scene_spec(scene), emissive_indices(scene),
+                                 0.9, "cuda")
+    tkw = dict(max_bounces=6, background=(2.0, 2.0, 5.0))
+    rgb0, cnt0 = cuda_path.path_trace(o, d, u, table, guide=guide,
+                                      fb_uniforms=f, fb_prob=0.0, **tkw)
+    rgb_u, cnt_u = cuda_path.path_trace(o, d, u, table, **tkw)
+    assert torch.equal(rgb0, rgb_u) and torch.equal(cnt0[:, :4], cnt_u)
+    assert not cnt0[:, 4:].any()

@@ -20,8 +20,10 @@ just after:
   student between levels).
 
 It holds every kernel against its plain PyTorch version, checks frames
-against the executed-reference goldens, times everything on the card's
-clock and prints JSON lines.  The last line is ``{"ok": true, "device":
+against the executed-reference goldens, holds the path and level kernels
+against their plain versions on seeded scenes built to cross the shared
+level's exact rewrites (phase level_edges), times everything on the
+card's clock and prints JSON lines.  The last line is ``{"ok": true, "device":
 {...}}``; any failed phase exits non-zero before it.  Without a CUDA
 device it exits 1 and prints no result.
 """
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
-                                      cuda_whitted, native)
+                                      cuda_whitted, native, vec)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
 from raytracer_tpu_torch.fb.distill import DistilledGuide
 from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
@@ -46,6 +48,7 @@ from raytracer_tpu_torch.render.path_renderer import render_path
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.library import chandelier_scene
+from raytracer_tpu_torch.tools import level_edges
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
 from raytracer_tpu_torch.trace.whitted import trace_whitted
@@ -60,18 +63,35 @@ SEED = 0
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
 
-# Published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and HBM3 bandwidth.
-PEAK_F32 = 67e12
+# H100 SXM rates.  f32 operations outside the tensor cores, none fused:
+# every kernel is built with -fmad=false (core/native.py), so an add or a
+# multiply is one instruction on one lane, 132 SMs x 128 lanes x 1.98 GHz =
+# 33.5 T operations/s; the data sheet's 67 TFLOP/s counts each fused
+# multiply-add as two operations.  HBM3 bandwidth from the data sheet.
+PEAK_F32_OPS = 33.5e12
 PEAK_BYTES = 3.35e12
-# f32 operations of csrc/path_trace.cu, counted from its code: the sweep per
-# sphere and ray-level run; per continuing level, direct light per emissive
-# sphere and the fixed rest (hit point, normal, reflection, offset, fold);
-# the first normalisation per ray.
-OPS_SWEEP_PER_SPHERE = 26
-OPS_DIRECT_PER_LIGHT = 32
-OPS_CONTINUE_FIXED = 82
+# f32 operations of the path level (csrc/path_common.cuh), counted from its
+# code, each IEEE square root or divide as one: what the function needs on
+# the run's data (tools/level_edges.py::level_work counts it level by
+# level), a valid sphere's thc and t and a light term's weight only where
+# they can change an output.  The sweep: l, tca and its test a sphere test;
+# d2 and its test a test in front of the ray; r^2, thc, t, |t| and the
+# nearest test a valid test.  Direct light: t, d2, t.n and the cull test a
+# light term of a continuing level; the square root, three divides, cos,
+# the weight, trunc and sum a term not skipped.  A continuing level: the hit
+# point, normal, offset and fold, and the mirror reflection where it is
+# kept (a diffuse lane's bounce is not counted).  The first normalisation a
+# ray.  The plain version computes every term: 26 a sphere test, 32 a light
+# term and 82 a continuing level (OPS_PLAIN_*).
+OPS_SPHERE = 9
+OPS_SPHERE_FRONT = 9
+OPS_SPHERE_VALID = 7
+OPS_LIGHT = 14
+OPS_LIGHT_COMPUTED = 24
+OPS_CONTINUE = 40
+OPS_REFLECT = 42
 OPS_PER_RAY = 10
+OPS_PLAIN_SPHERE, OPS_PLAIN_LIGHT, OPS_PLAIN_CONTINUE = 26, 32, 82
 BYTES_PER_RAY = 24 + 12 + 16     # origin + direction in; rgb + counts out
 # f32 operations of csrc/whitted_trace.cu and csrc/nearest_hit.cu, counted
 # from their code (csrc/sphere.cuh sweep; whitted_trace.cu helpers): the
@@ -116,6 +136,10 @@ G_BYTES_FB = 4
 LVL_BYTES_PER_RAY = 12 + 12 + 1 + 1 + 24 + 12 + 12
 LVL_BYTES_HIT = 44
 LVL_BYTES_U = 8
+# level_edges: seeded scenes on the edges of the level's exact rewrites
+# (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
+EDGE_SEEDS = (SEED + 20, SEED + 21, SEED + 22)
+EDGE_RAYS = 200_000
 
 
 class PhaseError(RuntimeError):
@@ -146,23 +170,50 @@ def cuda_ms(fn, reps):
 def bound(ops, nbytes):
     """Least time for ``ops`` f32 operations and ``nbytes`` bytes: the
     larger of the two over the card's peaks, and which one sets it."""
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes")
 
 
-def bound_ms(counts, n_spheres, n_emissive, max_bounces, n_rays):
-    """Least time for the kernel's work on these inputs: the larger of its
-    f32 operations over the f32 peak and its bytes over the HBM rate."""
-    c = counts.to(torch.int64)
-    levels_run = torch.clamp_max(c[:, 0], max_bounces).sum().item()
-    levels_cont = (c[:, 1] - c[:, 2]).sum().item()
-    ops = (OPS_PER_RAY * n_rays
-           + OPS_SWEEP_PER_SPHERE * n_spheres * levels_run
-           + (OPS_DIRECT_PER_LIGHT * n_emissive + OPS_CONTINUE_FIXED)
-           * levels_cont)
-    nbytes = BYTES_PER_RAY * n_rays
-    return (*bound(ops, nbytes), ops, nbytes)
+def add_work(total, work):
+    """Sums ``level_work`` dicts into ``total``, nested ones flattened."""
+    for k, v in work.items():
+        for kk, vv in (v.items() if isinstance(v, dict) else ((None, v),)):
+            key = k if kk is None else f"{k}_{kk}"
+            total[key] = total.get(key, 0) + vv
+    return total
+
+
+def level_ops(work):
+    """``(f32 operations the level needs, those the plain version does)``
+    over summed ``level_work`` counts."""
+    ops = (OPS_SPHERE * work["sphere_tests"]
+           + OPS_SPHERE_FRONT * work["front_sphere_tests"]
+           + OPS_SPHERE_VALID * work["valid_sphere_tests"]
+           + OPS_LIGHT * work["light_terms"]
+           + OPS_LIGHT_COMPUTED * work["lights_computed"]
+           + OPS_CONTINUE * work["continuing"]
+           + OPS_REFLECT * work["reflections"])
+    plain = (OPS_PLAIN_SPHERE * work["sphere_tests"]
+             + OPS_PLAIN_LIGHT * work["light_terms"]
+             + OPS_PLAIN_CONTINUE * work["continuing"])
+    return ops, plain
+
+
+def traced_work(o, d, u, table, **kw):
+    """``(rgb, counts, summed level_work)`` of ``path_trace_plain`` on these
+    inputs: the plain trace, each level's work counted on its data."""
+    total = {}
+
+    def counted(lo, ld, lrun, lu, ltable, **lkw):
+        lv = cuda_path.level_plain(lo, ld, lrun, lu, ltable,
+                                   fast=lkw["fast"], want_hit=True)
+        add_work(total, level_edges.level_work(lo, ld, lrun, lu, ltable, lv))
+        return lv
+
+    # path_trace_plain is trace_levels over level_plain.
+    rgb, counts = cuda_path.trace_levels(counted, o, d, u, table, **kw)
+    return rgb, counts, total
 
 
 def stats_close(a, b, rel):
@@ -725,12 +776,19 @@ def guided_phases(dev, card, scene, params, libs):
     g_ms = cuda_ms(lambda: cuda_path.path_trace(o, d, u, table, **gkw), 5)
     g_plain_ms = cuda_ms(lambda: cuda_path.path_trace_plain(
         o, d, u, table, **gkw), 1)
-    n_sph, n_em = len(table.spec), len(table.emissive_idx)
-    _, _, f32_ops, _ = bound_ms(cnt, n_sph, n_em, BOUNCES, R)
+    # The level's work on the guided frame's data: the hybrid's levels,
+    # which are the plain version's (level_kernel holds the level kernel to
+    # level_plain bit for bit), the kernel's up to the samples where the
+    # tensor cores' student differs (guided_main).
+    l_work = {}
+    for (lo, ld, lrun, lu, ltable), kw, _ in recorded:
+        add_work(l_work, level_edges.level_work(lo, ld, lrun, lu, ltable))
+    l_ops, l_ops_plain = level_ops(l_work)
+    f32_ops = l_ops + OPS_PER_RAY * R
     fb_used = int(cnt[:, 4].sum(dtype=torch.int64))
     mlp_flops = STUDENT_FLOPS * fb_used
     g_bytes = G_BYTES_PER_RAY * R + G_BYTES_FB * fb_used
-    t_ops = f32_ops / PEAK_F32 * 1e3 + mlp_flops / PEAK_BF16 * 1e3
+    t_ops = f32_ops / PEAK_F32_OPS * 1e3 + mlp_flops / PEAK_BF16 * 1e3
     t_bytes = g_bytes / PEAK_BYTES * 1e3
     g_bound = max(t_ops, t_bytes)
     g_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -739,7 +797,12 @@ def guided_phases(dev, card, scene, params, libs):
     gkw0 = dict(gkw, fb_prob=0.0)
     _, cnt0 = cuda_path.path_trace(o, d, u, table, **gkw0)
     g0_ms = cuda_ms(lambda: cuda_path.path_trace(o, d, u, table, **gkw0), 5)
-    g0_bound, g0_by, f32_ops0, _ = bound_ms(cnt0, n_sph, n_em, BOUNCES, R)
+    # Its work: the unguided plain trace on the same uniforms (guided_edges
+    # holds the two kernels equal at fb_prob 0).
+    _, _, work0 = traced_work(o, d, u, table, max_bounces=BOUNCES,
+                              background=BG)
+    f32_ops0 = level_ops(work0)[0] + OPS_PER_RAY * R
+    g0_bound, g0_by = bound(f32_ops0, BYTES_PER_RAY * R)
     levels = {name: int(torch.clamp_max(c[:, 0], BOUNCES).sum(
         dtype=torch.int64)) for name, c in (("fb_prob_1", cnt),
                                             ("fb_prob_0", cnt0))}
@@ -763,15 +826,10 @@ def guided_phases(dev, card, scene, params, libs):
     l_ms = cuda_ms(level_frame, 5)
     l_plain_ms = cuda_ms(lambda: [cuda_level.path_level_plain(*a, **kw)
                                   for a, kw, _ in recorded], 1)
-    l_ops = l_bytes = 0
+    l_bytes = 0
     for (lo, ld, lrun, lu, _), kw, st in recorded:
-        running = int(lrun.sum())
-        cont = int(((st & cuda_level.ST_CONT) != 0).sum())
         diffuse = int((((st & cuda_level.ST_CONT) != 0)
                        & ((st & cuda_level.ST_MIRROR) == 0)).sum())
-        l_ops += (OPS_SWEEP_PER_SPHERE * n_sph * running
-                  + (OPS_DIRECT_PER_LIGHT * n_em + OPS_CONTINUE_FIXED)
-                  * cont)
         l_bytes += ((LVL_BYTES_PER_RAY
                      + (LVL_BYTES_HIT if kw.get("want_hit") else 0))
                     * lo.shape[0] + LVL_BYTES_U * diffuse)
@@ -809,6 +867,7 @@ def guided_phases(dev, card, scene, params, libs):
           "path_level_bound_ms": l_bound, "path_level_bound_by": l_by,
           "path_level_bound_ops": l_ops, "path_level_bound_bytes": l_bytes,
           "path_level_bound_share": l_bound / l_ms,
+          "path_level_plain_ops": l_ops_plain, "level_work": l_work,
           "render_path_kernel_wall_ms": walls["kernel"],
           "render_path_hybrid_wall_ms": walls["hybrid"],
           "library_ms": None,
@@ -831,6 +890,78 @@ def guided_phases(dev, card, scene, params, libs):
          "max_abs_err": level_err[0],
          "ms": l_ms, "plain_ms": l_plain_ms, "bound_ms": l_bound,
          "bound_by": l_by, "library_ms": None}]
+
+
+def level_edges_phase(dev):
+    """Phase level_edges: on seeded scenes built to cross the shared level's
+    rewrites (radii with T(r) != fl(r*r) and rays grazing them, lights whose
+    cut passes through the hit points, grazing normals), the unguided path
+    kernel against its plain version (bit for bit at mirror_threshold 0,
+    exact and fast; at 0.9 the diffuse bound of diffuse_and_ragged), the
+    level kernel against its plain version level by level on the same
+    inputs, and the hybrid against the whole-trace kernel, bit for bit."""
+    t0 = time.perf_counter()
+    cells, ok = [], True
+    for seed in EDGE_SEEDS:
+        scene, o, d = level_edges.edge_scene(seed, EDGE_RAYS, dev)
+        R = o.shape[0]
+        spec, em = scene_spec(scene), emissive_indices(scene)
+        gen = torch.Generator(dev).manual_seed(seed)
+        u9 = torch.rand((BOUNCES, R, 2), device=dev, generator=gen)
+        for thr, fast, u in ((0.0, False, None), (0.0, True, None),
+                             (0.9, False, u9)):
+            table = cuda_path.path_table(spec, em, thr, dev)
+            kw = dict(max_bounces=BOUNCES, background=BG, fast=fast)
+            rk, ck = cuda_path.path_trace(o, d, u, table, **kw)
+            rp, cp = cuda_path.path_trace_plain(o, d, u, table, **kw)
+            levels_equal = []
+
+            def checked(lo, ld, lrun, lu, ltable, **lkw):
+                a = cuda_level.path_level(lo, ld, lrun, lu, ltable, **lkw)
+                b = cuda_level.path_level_plain(lo, ld, lrun, lu, ltable,
+                                                **lkw)
+                levels_equal.append(all(
+                    (x is None and y is None) or bool(torch.equal(x, y))
+                    for x, y in zip(a, b)))
+                return a
+
+            rh, ch = cuda_path.trace_levels(checked, o, d, u, table, **kw)
+            torch.cuda.synchronize()
+            equal = bool(torch.equal(rk, rp)) and bool(torch.equal(ck, cp))
+            frac = float((rk == rp).all(-1).double().mean())
+            sums_k = ck.sum(0, dtype=torch.int64).tolist()
+            sums_p = cp.sum(0, dtype=torch.int64).tolist()
+            hybrid_equal = (bool(torch.equal(rh, rk))
+                            and bool(torch.equal(ch, ck)))
+            # The first level's tests on the rewrites' edges.
+            dn = torch.stack(vec.normalise_safe_c(*d.unbind(1)), -1)
+            lv = cuda_level.path_level_plain(
+                o, dn, torch.ones(R, dtype=torch.bool, device=dev),
+                None if u is None else u[0], table, fast=fast,
+                want_hit=True)
+            edges = level_edges.edge_counts(
+                o, dn, table, lv.hit, (lv.state & cuda_level.ST_CONT) != 0)
+            cell_ok = (all(levels_equal) and len(levels_equal) == BOUNCES
+                       and hybrid_equal and all(v > 0 for v in
+                                                edges.values())
+                       and (equal if thr == 0.0 else (
+                           frac >= 0.95 and stats_close(
+                               dict(enumerate(sums_k)),
+                               dict(enumerate(sums_p)), 0.02))))
+            ok &= cell_ok
+            cells.append({"seed": seed, "mirror_threshold": thr,
+                          "precision": "fast" if fast else "exact",
+                          "rays": R, "kernel_vs_plain_bit_equal": equal,
+                          "samples_equal_fraction": frac,
+                          "counts_kernel": sums_k, "counts_plain": sums_p,
+                          "levels_bit_equal": levels_equal,
+                          "hybrid_vs_kernel_bit_equal": hybrid_equal,
+                          "first_level_edges": edges, "ok": cell_ok})
+    emit({"phase": "level_edges", "cells": cells,
+          "seconds": time.perf_counter() - t0})
+    check(ok, "level_edges: a kernel differs from its plain version, the "
+          "hybrid from the kernel, or a scene crosses no edge: "
+          f"{[c for c in cells if not c['ok']]}")
 
 
 def main():
@@ -922,7 +1053,8 @@ def main():
                                  0.0, dev)
     tkw = dict(max_bounces=BOUNCES, background=BG)
     rgb_k, cnt_k = cuda_path.path_trace(o, d, None, table, **tkw)
-    rgb_p, cnt_p = cuda_path.path_trace_plain(o, d, None, table, **tkw)
+    # The plain trace, its work counted level by level for the bound.
+    rgb_p, cnt_p, work = traced_work(o, d, None, table, **tkw)
     torch.cuda.synchronize()
     max_abs_err = float((rgb_k - rgb_p).abs().max())
     samples_off = float((rgb_k != rgb_p).any(-1).float().mean())
@@ -936,6 +1068,12 @@ def main():
     emit({"phase": "kernel_vs_plain", "rays": o.shape[0],
           "max_abs_err": max_abs_err, "samples_off_fraction": samples_off,
           "counts_kernel": sums_k, "counts_plain": sums_p})
+
+    # The square roots and divides of the frame's levels, counted on its
+    # data (tools/level_edges.py::level_work): as the plain version and
+    # the parent kernel take them, and as the kernel takes them now.
+    per_level = {k: v / work["ray_levels"] for k, v in work.items()
+                 if k.startswith(("before", "after"))}
 
     # 4. Golden on the card: pixel centres, spp 1, 8 bounces.
     t0 = time.perf_counter()
@@ -991,6 +1129,8 @@ def main():
           f"stats {sdk} vs {sdp}")
     check(ragged_equal, "ragged 3601-ray kernel vs plain differ")
 
+    level_edges_phase(dev)
+
     # 6. Times on the card's clock at the main path's shapes.
     t0 = time.perf_counter()
     for _ in range(3):
@@ -1009,8 +1149,10 @@ def main():
         walls.append((time.perf_counter() - t1) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev)
     n_rays = o.shape[0]
-    bms, bby, ops, nbytes = bound_ms(cnt_k, len(table.spec),
-                                     len(table.emissive_idx), BOUNCES, n_rays)
+    ops, ops_plain = level_ops(work)
+    ops += OPS_PER_RAY * n_rays
+    nbytes = BYTES_PER_RAY * n_rays
+    bms, bby = bound(ops, nbytes)
     emit({"phase": "times", **card, "frame": f"{W}x{H}@{SPP}spp/{BOUNCES}",
           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
           "render_path_wall_ms": walls, "render_path_wall_ms_min": min(walls),
@@ -1019,6 +1161,8 @@ def main():
           "rays_per_s_wall": sk["total_rays"] / (min(walls) / 1e3),
           "bound_ms": bms, "bound_by": bby, "bound_ops": ops,
           "bound_bytes": nbytes, "bound_share": bms / kernel_ms,
+          "plain_ops": ops_plain + OPS_PER_RAY * n_rays,
+          "level_work": work, "sqrt_div_per_ray_level": per_level,
           "max_memory_allocated_bytes": peak,
           "library_ms": None,
           "library_note": "no single PyTorch call computes this function",

@@ -63,6 +63,7 @@ def path_level(o: torch.Tensor, d: torch.Tensor, running: torch.Tensor,
             o.data_ptr(), d.data_ptr(), running.data_ptr(),
             None if u is None else u.data_ptr(), table.spheres.data_ptr(),
             table.flags.data_ptr(), table.emissive.data_ptr(),
+            table.inside.data_ptr(), table.light_cut.data_ptr(),
             len(table.spec), len(table.emissive_idx), R, int(fast),
             out.state.data_ptr(), out.rec.data_ptr(), out.o_next.data_ptr(),
             out.d_next.data_ptr(),
@@ -82,7 +83,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.path_level_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_longlong, i,
-                       p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, ctypes.c_longlong,
+                       i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib

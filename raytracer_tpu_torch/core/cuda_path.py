@@ -32,6 +32,7 @@ import math
 import weakref
 from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import native, vec
@@ -53,6 +54,10 @@ MMA_OBS_PAD, MMA_OUT_PAD = 32, 8
 OBS_DIM, ACTION_DIM = 22, 2
 FLAG_EMISSIVE, FLAG_SMALL, FLAG_MIRROR = 1, 2, 4
 SMALL_LIGHT_RADIUS = 0.5    # small light: emissive with radius < 0.5
+# csrc/path_common.cuh's light culls: the far cut's margin over
+# 0.3 * max |colour|, and the least squared distance either cull takes.
+LIGHT_CUT_MARGIN = 2.0 ** -10
+CULL_MIN_D2 = 2.0 ** -60
 # Level state bits (csrc/path_level.cu).
 ST_RUNNING, ST_FOUND, ST_EMISSIVE, ST_SMALL, ST_MIRROR, ST_CONT = (
     1, 2, 4, 8, 16, 32)
@@ -67,13 +72,62 @@ class PathTable:
     emit ior id`` (the material columns feed the guide's observation);
     ``flags [N]`` int32 bits (emissive, small light, mirror at
     ``mirror_threshold``); ``emissive [E]`` int32 indices of the emissive
-    spheres, ascending."""
+    spheres, ascending; ``inside [N]`` float32, each radius's
+    ``inside_threshold``; ``light_cut [E]`` float32, each emissive
+    sphere's ``light_cut``.  The plain versions read ``spec`` and
+    ``emissive_idx``; the kernels read the tensors."""
     spec: tuple
     emissive_idx: tuple
     mirror_threshold: float
     spheres: torch.Tensor
     flags: torch.Tensor
     emissive: torch.Tensor
+    inside: torch.Tensor
+    light_cut: torch.Tensor
+
+
+def inside_threshold(radius) -> np.ndarray:
+    """``T(r)`` per radius, float32: the largest float32 ``x`` with
+    ``sqrt(x) <= r`` in float32.  The square root is correctly rounded and
+    monotone, so for every float32 ``d2 >= 0``, ``+inf`` or NaN,
+    ``sqrt(d2) <= r`` exactly when ``d2 <= T(r)``: the sweep's exact inside
+    test without its square root (``csrc/path_common.cuh::sweep``).  It
+    starts at ``r * r`` and steps by one float while the square root
+    allows; ``r`` NaN gives NaN, ``r < 0`` gives ``-inf``, ``r`` = +inf
+    gives +inf (``d2 <= T`` never, never, always)."""
+    r = np.asarray(radius, dtype=np.float32)
+    inf = np.float32(np.inf)
+    with np.errstate(over="ignore", invalid="ignore"):
+        t = np.where(r > 0, r * r, np.float32(0.0)).astype(np.float32)
+        step = (r > 0) & (r < inf)
+        while True:          # down while sqrt(t) > r (t = inf for huge r)
+            down = step & (np.sqrt(t) > r)
+            if not down.any():
+                break
+            t = np.where(down, np.nextafter(t, np.float32(0.0)), t)
+        while True:          # up while the next float still passes
+            nxt = np.nextafter(t, inf)
+            up = step & (np.sqrt(nxt) <= r)
+            if not up.any():
+                break
+            t = np.where(up, nxt, t)
+    t = np.where(r == inf, inf, t)
+    t = np.where(r < 0, -inf, t)
+    return np.where(np.isnan(r), np.float32(np.nan), t).astype(np.float32)
+
+
+def light_cut(colours) -> np.ndarray:
+    """Each light's far cut on ``d2``, float32: ``0.3 * max |colour| * (1 +
+    LIGHT_CUT_MARGIN)``, at least ``CULL_MIN_D2``; ``+inf`` where a colour
+    is not finite.  Past it ``trunc(w * colour)`` is +-0 in every channel
+    (the argument is in ``csrc/path_common.cuh::direct_light``).
+    ``colours [E, 3]``."""
+    c = np.abs(np.asarray(colours, dtype=np.float64).reshape(-1, 3))
+    with np.errstate(invalid="ignore"):
+        cut = np.maximum(0.3 * c.max(axis=1, initial=0.0)
+                         * (1.0 + LIGHT_CUT_MARGIN), CULL_MIN_D2)
+    cut = np.where(np.isfinite(c).all(axis=1), cut, np.inf)
+    return cut.astype(np.float32)
 
 
 def _flag_lists(spec, mirror_threshold):
@@ -90,13 +144,18 @@ def path_table(spec: Sequence[tuple], emissive_idx: Sequence[int],
     em, sm, mr = _flag_lists(spec, mirror_threshold)
     flags = [FLAG_EMISSIVE * e + FLAG_SMALL * s + FLAG_MIRROR * m
              for e, s, m in zip(em, sm, mr)]
+    rows = np.array([row[:12] for row in spec],
+                    dtype=np.float32).reshape(len(spec), 12)
+    emissive_idx = tuple(emissive_idx)
     return PathTable(
-        spec, tuple(emissive_idx), float(mirror_threshold),
-        spheres=torch.tensor([row[:12] for row in spec], dtype=torch.float32,
-                             device=device).reshape(len(spec), 12),
+        spec, emissive_idx, float(mirror_threshold),
+        spheres=torch.from_numpy(rows).to(device),
         flags=torch.tensor(flags, dtype=torch.int32, device=device),
         emissive=torch.tensor(emissive_idx, dtype=torch.int32,
-                              device=device))
+                              device=device),
+        inside=torch.from_numpy(inside_threshold(rows[:, 3])).to(device),
+        light_cut=torch.from_numpy(light_cut(
+            rows[list(emissive_idx), 4:7])).to(device))
 
 
 def check_rays(origins, dirs, table):
@@ -115,7 +174,8 @@ def check_rays(origins, dirs, table):
     if not 1 <= n <= MAX_SPHERES or e > MAX_EMISSIVE:
         raise ValueError(f"scene has {n} spheres / {e} emissive; the kernel "
                          f"takes 1..{MAX_SPHERES} / at most {MAX_EMISSIVE}")
-    for t in (table.spheres, table.flags, table.emissive):
+    for t in (table.spheres, table.flags, table.emissive, table.inside,
+              table.light_cut):
         if t.device != dev:
             raise ValueError("scene table must be on the rays' device")
 
@@ -290,7 +350,8 @@ def path_trace(origins: torch.Tensor, dirs: torch.Tensor,
             None if uniforms is None else uniforms.data_ptr(),
             None if fb_uniforms is None else fb_uniforms.data_ptr(),
             float(fb_prob), table.spheres.data_ptr(), table.flags.data_ptr(),
-            table.emissive.data_ptr(), len(table.spec),
+            table.emissive.data_ptr(), table.inside.data_ptr(),
+            table.light_cut.data_ptr(), len(table.spec),
             len(table.emissive_idx), R, max_bounces, bg[0], bg[1], bg[2],
             int(fast))
     sargs = student_args(guide, route, dev)
@@ -320,8 +381,8 @@ path_trace.route_launches = {"unguided": 0, "f32": 0, "bf16_mma": 0}
 # Each library's C functions and their argument types, one letter each:
 # p pointer, i int, f float, L long long, l / n pointers to long long / int.
 _SIGNATURES = {
-    "path_trace": {"path_trace_launch": "ppppfpppiiLifffipiiippp"},
-    "path_guided": {"path_guided_launch": "ppppfpppiiLifffipiiipppp",
+    "path_trace": {"path_trace_launch": "ppppfpppppiiLifffipiiippp"},
+    "path_guided": {"path_guided_launch": "ppppfpppppiiLifffipiiipppp",
                     "path_guided_occupancy": "iiiln"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,

@@ -72,6 +72,8 @@ struct Params {
   const float* spheres;
   const int* flags;
   const int* emissive;
+  const float* inside;        // PathTable.inside [n_spheres]
+  const float* light_cut;     // PathTable.light_cut [n_emissive]
   const __nv_bfloat16* student;   // packed (student_mma.cuh)
   float* rgb;
   int* counts;                // [R, 6]
@@ -100,7 +102,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     uint4* dst = reinterpret_cast<uint4*>(s_w);
     for (int k = threadIdx.x; k < nw / 8; k += blockDim.x) dst[k] = src[k];
   }
-  path::stage(tb, p.spheres, p.flags, p.emissive, p.n_spheres, p.n_emissive);
+  path::stage(tb, p.spheres, p.flags, p.emissive, p.inside, p.light_cut,
+              p.n_spheres, p.n_emissive, p.fast);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   __nv_bfloat16* s_tile = s_w + nw + warp * smma::kTileElems;
   const unsigned lanes_below = (1u << lane) - 1u;
@@ -146,7 +149,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       if (running) {
         ++n_run;
         n_levels = lvl + 1;
-        h = path::sweep(tb, p.n_spheres, ox, oy, oz, dx, dy, dz, p.fast);
+        h = path::sweep(tb, p.n_spheres, ox, oy, oz, dx, dy, dz);
         if (!h.found) {
           kind[lvl] = kMiss;
           running = false;
@@ -280,9 +283,10 @@ bool dims_ok(int n_hidden, int h1, int h2) {
 extern "C" int path_guided_launch(
     const float* origins, const float* dirs, const float* uniforms,
     const float* fb_uniforms, float fb_prob, const float* spheres,
-    const int* flags, const int* emissive, int n_spheres, int n_emissive,
-    long long n_rays, int max_bounces, float bg_r, float bg_g, float bg_b,
-    int fast, const void* student, int n_hidden, int h1, int h2, float* rgb,
+    const int* flags, const int* emissive, const float* inside,
+    const float* light_cut, int n_spheres, int n_emissive, long long n_rays,
+    int max_bounces, float bg_r, float bg_g, float bg_b, int fast,
+    const void* student, int n_hidden, int h1, int h2, float* rgb,
     int* counts, unsigned long long* next_tile, void* stream) {
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || n_emissive < 0 ||
       n_emissive > path::kMaxEmissive || max_bounces < 1 ||
@@ -309,10 +313,9 @@ extern "C" int path_guided_launch(
   const long long fit = static_cast<long long>(sms) * per_sm;
   const unsigned grid = static_cast<unsigned>(blocks < fit ? blocks : fit);
   Params p{origins, dirs, uniforms, fb_uniforms, spheres, flags, emissive,
-           static_cast<const __nv_bfloat16*>(student), rgb, counts, next_tile,
-           n_rays,
-           n_spheres, n_emissive, max_bounces, fast, bg_r, bg_g, bg_b,
-           fb_prob, dims};
+           inside, light_cut, static_cast<const __nv_bfloat16*>(student), rgb,
+           counts, next_tile, n_rays, n_spheres, n_emissive, max_bounces,
+           fast, bg_r, bg_g, bg_b, fb_prob, dims};
   path_guided_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(
                                                  stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -21,13 +21,17 @@
 // The TPU kernel's 32 f32 planes are not copied: the state is one byte and
 // only what the hybrid reads is written.
 //
-// What bounds it on an H100: bytes, at the guided hybrid's shapes.  A lane
-// reads 24 B of ray, 1 of state and 8 of uniforms and writes 1 + 24 + 12 +
-// 12 + 44 = 93 B; the sweep and direct light are ~0.8-1.5 k f32 operations
-// a running lane (path_trace.cu's count), less than the ~126 B over
-// 3.35 TB/s once most lanes have left.  Design: one thread per ray, the
-// scene table staged in shared memory per block, a lane that is not running
-// writes its pass-through values and leaves.
+// What bounds it on an H100, at the guided hybrid's shapes: bytes and
+// operations come close.  A lane reads 24 B of ray, 1 of state and 8 of
+// uniforms and writes 1 + 24 + 12 + 12 + 44 = 93 B at 3.35 TB/s; a running
+// lane needs the level's f32 operations (path_trace.cu's count, none fused,
+// -fmad=false) at 33.5 T/s.  chip_smoke.py counts both on each run's data.
+// Design: one thread per ray in 128-thread blocks, each staging the scene
+// table in shared memory; the level is path_common.cuh's, with the sweep's
+// inside test without its square root and the lights whose term is
+// provably zero skipped, and a diffuse lane skips the mirror reflection it
+// would not keep; a lane that is not running writes its pass-through values
+// and leaves.
 
 #include <cuda_runtime.h>
 
@@ -55,6 +59,8 @@ struct Params {
   const float* spheres;
   const int* flags;
   const int* emissive;
+  const float* inside;     // PathTable.inside [n_spheres]
+  const float* light_cut;  // PathTable.light_cut [n_emissive]
   unsigned char* state;
   float* rec;
   float* o_next;
@@ -66,7 +72,8 @@ struct Params {
 
 __global__ void __launch_bounds__(kThreads) path_level_kernel(Params p) {
   __shared__ path::Table tb;
-  path::stage(tb, p.spheres, p.flags, p.emissive, p.n_spheres, p.n_emissive);
+  path::stage(tb, p.spheres, p.flags, p.emissive, p.inside, p.light_cut,
+              p.n_spheres, p.n_emissive, p.fast);
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= p.n_rays) return;
@@ -81,8 +88,7 @@ __global__ void __launch_bounds__(kThreads) path_level_kernel(Params p) {
 
   if (p.running[i]) {
     st |= kStRunning;
-    const path::Hit h = path::sweep(tb, p.n_spheres, ox, oy, oz, dx, dy, dz,
-                                    p.fast);
+    const path::Hit h = path::sweep(tb, p.n_spheres, ox, oy, oz, dx, dy, dz);
     if (h.found) {
       st |= kStFound;
       if (h.flags & path::kFlagSmall) st |= kStSmall;
@@ -98,10 +104,12 @@ __global__ void __launch_bounds__(kThreads) path_level_kernel(Params p) {
         if (mirror) st |= kStMirror;
         path::direct_light(tb, p.n_emissive, h, p.fast, rec[3], rec[4],
                            rec[5]);
-        path::reflect(dx, dy, dz, h.nx, h.ny, h.nz, ndx, ndy, ndz);
+        // The plain version computes both directions and keeps one.
         if (!mirror && p.u != nullptr)
           path::cosine_bounce(p.u[2 * i], p.u[2 * i + 1], h.nx, h.ny, h.nz,
                               ndx, ndy, ndz);
+        else
+          path::reflect(dx, dy, dz, h.nx, h.ny, h.nz, ndx, ndy, ndz);
         const float kOffset = static_cast<float>(0.001);
         nox = h.px + h.nx * kOffset;
         noy = h.py + h.ny * kOffset;
@@ -135,8 +143,9 @@ __global__ void __launch_bounds__(kThreads) path_level_kernel(Params p) {
 extern "C" int path_level_launch(
     const float* o, const float* d, const unsigned char* running,
     const float* u, const float* spheres, const int* flags,
-    const int* emissive, int n_spheres, int n_emissive, long long n_rays,
-    int fast, unsigned char* state, float* rec, float* o_next, float* d_next,
+    const int* emissive, const float* inside, const float* light_cut,
+    int n_spheres, int n_emissive, long long n_rays, int fast,
+    unsigned char* state, float* rec, float* o_next, float* d_next,
     float* hit, void* stream) {
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || n_emissive < 0 ||
       n_emissive > path::kMaxEmissive || n_rays < 0)
@@ -144,8 +153,9 @@ extern "C" int path_level_launch(
   if (n_rays == 0) return static_cast<int>(cudaSuccess);
   const long long blocks = (n_rays + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{o, d, running, u, spheres, flags, emissive, state, rec,
-           o_next, d_next, hit, n_rays, n_spheres, n_emissive, fast};
+  Params p{o, d, running, u, spheres, flags, emissive, inside, light_cut,
+           state, rec, o_next, d_next, hit, n_rays, n_spheres, n_emissive,
+           fast};
   path_level_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -18,11 +18,17 @@
 // the student's student.cuh's.  The plain PyTorch version beside it is
 // core/cuda_path.py::path_trace_plain.
 //
-// What bounds it on an H100: operations.  Per ray and level run, the sweep
-// costs about 26 f32 operations a sphere (29 spheres in the chandelier), and
-// a level that continues adds about 32 a light for direct lighting (21
-// emissive spheres) plus about 80 for the hit point, normal, reflection,
-// offset and fold: about 1.5 k operations a ray-level.  A guided bounce adds
+// What bounds it on an H100: operations, none of them fused (-fmad=false),
+// so at 33.5 T f32 operations/s.  Per ray and level run, the sweep needs 9
+// f32 operations a sphere (29 in the chandelier), 9 more for a sphere ahead
+// of the ray and 7 more for one the ray meets; a level that continues needs
+// 14 a light (21 emissive spheres), 24 more for a light whose term is not
+// provably zero, 40 for the hit point, normal, offset and fold and 42 for a
+// mirror reflection.  The plain version computes every term, about 1.5 k
+// operations a ray-level.  Its IEEE square roots and divides are
+// instruction sequences, so the shared level (path_common.cuh) takes the
+// sweep's inside test without its square root and skips the lights whose
+// term is provably zero.  A guided bounce adds
 // the student's 2*(22*128 + 128*128 + 128*2) = 38,912 flops at the shipped
 // width, work for the tensor cores (989 TFLOP/s dense bf16) that this first
 // kernel does as f32 multiply-adds in the CUDA cores.  Its I/O is 52 bytes a
@@ -32,13 +38,14 @@
 //
 // Design for that bound: one thread per ray in 128-thread blocks with a
 // masked ragged tail; the scene table (sphere rows with their material
-// columns, flags, emissive list) is staged in shared memory once per block;
-// a ray leaves the level loop as soon as it terminates; the level records
-// for the fold stay in thread-local storage.  Guided, the student's f32
-// weights (about 80 KB at 22->128->128->2) and one activation tile a warp
-// sit in dynamic shared memory, and the grid is cut to the blocks that fit
-// on the card at once, each looping over ray tiles, so every block stages
-// the weights once.  The MLP runs for the lanes of a warp that take the
+// columns, flags, the emissive list, the inside thresholds and light cuts)
+// is staged in shared memory once per block; a ray leaves the level loop
+// as soon as it terminates; the level records for the fold (16 B a level)
+// stay in thread-local storage.  Guided, the student's f32 weights (about
+// 80 KB at 22->128->128->2) and one activation tile a warp sit in dynamic
+// shared memory, and the grid is cut to the blocks that fit on the card at
+// once, each looping over ray tiles, so every block stages the weights
+// once.  The MLP runs for the lanes of a warp that take the
 // guide at the same level, together, as scalar multiply-adds: in f32 the
 // tensor cores' TF32 would change its results.
 
@@ -57,12 +64,12 @@ constexpr int kMaxBounces = 16;   // core/cuda_path.py MAX_BOUNCES
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
-constexpr unsigned char kMiss = 1;
-constexpr unsigned char kEmissive = 2;
-constexpr unsigned char kContinue = 3;
-
+// A ray's level record for the fold, 16 B: the hit sphere's index (-1 on a
+// miss) and, on a level that continues, its direct light; the albedo is
+// the table's.
 struct Level {
-  float ar, ag, ab, dr, dg, db;
+  int idx;
+  float direct[3];
 };
 
 struct Params {
@@ -73,6 +80,8 @@ struct Params {
   const float* spheres;
   const int* flags;
   const int* emissive;
+  const float* inside;        // PathTable.inside [n_spheres]
+  const float* light_cut;     // PathTable.light_cut [n_emissive]
   const float* student;       // packed student (student.cuh), or null
   float* rgb;
   int* counts;                // [R, 4], guided [R, 6]
@@ -94,7 +103,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
   __shared__ path::Table tb;
   extern __shared__ __align__(16) unsigned char s_dyn[];
-  path::stage(tb, p.spheres, p.flags, p.emissive, p.n_spheres, p.n_emissive);
+  path::stage(tb, p.spheres, p.flags, p.emissive, p.inside, p.light_cut,
+              p.n_spheres, p.n_emissive, p.fast);
   const bool guided = p.student != nullptr;
   T* s_w = reinterpret_cast<T*>(s_dyn);
   T* s_tile = nullptr;
@@ -118,7 +128,6 @@ __global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
     float dx = p.dirs[3 * i], dy = p.dirs[3 * i + 1], dz = p.dirs[3 * i + 2];
     path::normalise3(dx, dy, dz);
 
-    unsigned char kind[kMaxBounces];
     Level rec[kMaxBounces];
     int n_run = 0, n_found = 0, n_emis = 0, n_small = 0, n_fb = 0;
     int n_levels = 0;
@@ -128,9 +137,9 @@ __global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
       ++n_run;
       n_levels = lvl + 1;
       const path::Hit h = path::sweep(tb, p.n_spheres, ox, oy, oz, dx, dy,
-                                      dz, p.fast);
+                                      dz);
       if (!h.found) {
-        kind[lvl] = kMiss;
+        rec[lvl] = Level{-1, {0.0f, 0.0f, 0.0f}};
         running = false;
         break;
       }
@@ -139,20 +148,20 @@ __global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
       const float* sp = tb.sph + h.idx * path::kRow;
       if (h.flags & path::kFlagEmissive) {
         ++n_emis;
-        kind[lvl] = kEmissive;
-        rec[lvl].ar = sp[4];
-        rec[lvl].ag = sp[5];
-        rec[lvl].ab = sp[6];
+        rec[lvl] = Level{h.idx, {0.0f, 0.0f, 0.0f}};
         running = false;
         break;
       }
 
       float dr, dg, db;
       path::direct_light(tb, p.n_emissive, h, p.fast, dr, dg, db);
+      // The plain version computes the reflection on every lane and keeps
+      // it where no diffuse direction replaces it; only those lanes need it.
       float rx, ry, rz;
-      path::reflect(dx, dy, dz, h.nx, h.ny, h.nz, rx, ry, rz);
       const bool mirror = (h.flags & path::kFlagMirror) != 0;
-      if (!mirror && p.uniforms != nullptr) {
+      if (mirror || p.uniforms == nullptr) {
+        path::reflect(dx, dy, dz, h.nx, h.ny, h.nz, rx, ry, rz);
+      } else {
         const long long at = static_cast<long long>(lvl) * n_rays + i;
         const bool use_fb = guided && p.fb_uniforms[at] < p.fb_prob;
         if (use_fb) {
@@ -181,30 +190,31 @@ __global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
       dx = rx;
       dy = ry;
       dz = rz;
-      kind[lvl] = kContinue;
-      rec[lvl] = Level{sp[4], sp[5], sp[6], dr, dg, db};
+      rec[lvl] = Level{h.idx, {dr, dg, db}};
     }
     // A ray still running after the last level makes one more trace() call
     // that the reference counts before its bounce-budget return.
     if (running) ++n_run;
 
-    float vr = p.bg_r, vg = p.bg_g, vb = p.bg_b;
+    float v[3] = {p.bg_r, p.bg_g, p.bg_b};
+    bool ended_on_light = false;
     for (int lvl = n_levels - 1; lvl >= 0; --lvl) {
-      const Level& l = rec[lvl];
-      if (kind[lvl] == kContinue) {
-        vr = truncf(l.ar * fminf(255.0f, l.dr + vr) / 255.0f);
-        vg = truncf(l.ag * fminf(255.0f, l.dg + vg) / 255.0f);
-        vb = truncf(l.ab * fminf(255.0f, l.db + vb) / 255.0f);
-      } else if (kind[lvl] == kEmissive) {
-        vr = l.ar;
-        vg = l.ag;
-        vb = l.ab;
-      } else {
-        vr = p.bg_r;
-        vg = p.bg_g;
-        vb = p.bg_b;
+      const int s = rec[lvl].idx;
+      const float* a = tb.sph + (s < 0 ? 0 : s) * path::kRow + 4;  // albedo
+      const bool light = s >= 0 && (tb.flags[s] & path::kFlagEmissive);
+      if (lvl == n_levels - 1) ended_on_light = light;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        if (s < 0)
+          v[c] = c == 0 ? p.bg_r : (c == 1 ? p.bg_g : p.bg_b);
+        else if (light)
+          v[c] = a[c];
+        else
+          v[c] = truncf(a[c] * fminf(255.0f, rec[lvl].direct[c] + v[c]) /
+                        255.0f);
       }
     }
+    const float vr = v[0], vg = v[1], vb = v[2];
     p.rgb[3 * i] = vr;
     p.rgb[3 * i + 1] = vg;
     p.rgb[3 * i + 2] = vb;
@@ -217,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) path_trace_kernel(Params p) {
     if (guided) {
       // fb_success: the lane's guided bounces, if it ended on a light.
       c[4] = n_fb;
-      c[5] = (kind[n_levels - 1] == kEmissive) ? n_fb : 0;
+      c[5] = ended_on_light ? n_fb : 0;
     }
   }
 }
@@ -260,10 +270,11 @@ int launch(const Params& p, cudaStream_t stream) {
 extern "C" int path_trace_launch(
     const float* origins, const float* dirs, const float* uniforms,
     const float* fb_uniforms, float fb_prob, const float* spheres,
-    const int* flags, const int* emissive, int n_spheres, int n_emissive,
-    long long n_rays, int max_bounces, float bg_r, float bg_g, float bg_b,
-    int fast, const float* student, int n_hidden, int h1, int h2,
-    float* rgb, int* counts, void* stream) {
+    const int* flags, const int* emissive, const float* inside,
+    const float* light_cut, int n_spheres, int n_emissive, long long n_rays,
+    int max_bounces, float bg_r, float bg_g, float bg_b, int fast,
+    const float* student, int n_hidden, int h1, int h2, float* rgb,
+    int* counts, void* stream) {
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || n_emissive < 0 ||
       n_emissive > path::kMaxEmissive || max_bounces < 1 ||
       max_bounces > kMaxBounces || n_rays < 0)
@@ -276,8 +287,8 @@ extern "C" int path_trace_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays == 0) return static_cast<int>(cudaSuccess);
   Params p{origins, dirs, uniforms, fb_uniforms, spheres, flags, emissive,
-           student, rgb, counts, n_rays, n_spheres, n_emissive, max_bounces,
-           fast, bg_r, bg_g, bg_b, fb_prob,
+           inside, light_cut, student, rgb, counts, n_rays, n_spheres,
+           n_emissive, max_bounces, fast, bg_r, bg_g, bg_b, fb_prob,
            student::Dims{n_hidden, h1, n_hidden == 2 ? h2 : 0}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return launch<float>(p, s);

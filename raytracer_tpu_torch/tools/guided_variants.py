@@ -150,6 +150,7 @@ def main():
                 err = fn(o.data_ptr(), d.data_ptr(), u.data_ptr(),
                          f.data_ptr(), fb, table.spheres.data_ptr(),
                          table.flags.data_ptr(), table.emissive.data_ptr(),
+                         table.inside.data_ptr(), table.light_cut.data_ptr(),
                          len(table.spec), len(table.emissive_idx), R,
                          BOUNCES, 2.0, 2.0, 5.0, 0, *sargs, rgb.data_ptr(),
                          cnt.data_ptr(), nxt.data_ptr(), stream)

@@ -20,6 +20,7 @@ from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.library import chandelier_scene
 from raytracer_tpu_torch.scene.types import scene_astype
+from raytracer_tpu_torch.tools import level_edges
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
 from raytracer_tpu_torch.trace.whitted import trace_whitted
@@ -510,3 +511,58 @@ def test_tensor_core_route_edge_cases_match_plain_on_card():
     rgb_u, cnt_u = cuda_path.path_trace(o, d, u, table, **tkw)
     assert torch.equal(rgb0, rgb_u) and torch.equal(cnt0[:, :4], cnt_u)
     assert not cnt0[:, 4:].any()
+
+
+@pytest.mark.cuda
+def test_level_edges_match_plain_on_card():
+    """On the card, on seeded scenes built to cross the shared level's
+    exact rewrites (tools/level_edges.py: radii with T(r) != fl(r*r) and
+    rays grazing them, lights whose cut passes through the hit points,
+    grazing normals): the unguided path kernel equals its plain version bit
+    for bit at mirror_threshold 0 (exact and fast) and within
+    test_kernel_matches_plain_on_card's diffuse bounds at 0.9; the level
+    kernel equals path_level_plain level by level on the same inputs; the
+    hybrid equals the whole-trace kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    for seed in (30, 31):
+        scene, o, d = level_edges.edge_scene(seed, 20_000, "cuda")
+        R = o.shape[0]
+        u = torch.rand((6, R, 2), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(seed))
+        for thr, fast, uu in ((0.0, False, None), (0.0, True, None),
+                              (0.9, False, u)):
+            table = cuda_path.path_table(scene_spec(scene),
+                                         emissive_indices(scene), thr, "cuda")
+            kw = dict(max_bounces=6, background=(2.0, 2.0, 5.0), fast=fast)
+            before = cuda_path.path_trace.launches
+            rk, ck = cuda_path.path_trace(o, d, uu, table, **kw)
+            rp, cp = cuda_path.path_trace_plain(o, d, uu, table, **kw)
+            levels = []
+
+            def checked(lo, ld, lrun, lu, ltable, **lkw):
+                a = cuda_level.path_level(lo, ld, lrun, lu, ltable, **lkw)
+                b = cuda_level.path_level_plain(lo, ld, lrun, lu, ltable,
+                                                **lkw)
+                levels.append(all(torch.equal(x, y) for x, y in zip(a, b)
+                                  if x is not None))
+                return a
+
+            before_level = cuda_level.path_level.launches
+            rh, ch = cuda_path.trace_levels(checked, o, d, uu, table, **kw)
+            torch.cuda.synchronize()
+            assert cuda_path.path_trace.launches == before + 1
+            assert cuda_level.path_level.launches == before_level + 6
+            assert levels == [True] * 6, (seed, thr, fast, levels)
+            assert torch.equal(rh, rk) and torch.equal(ch, ck)
+            k, p = rk.cpu().numpy(), rp.cpu().numpy()
+            if thr == 0.0:
+                np.testing.assert_array_equal(k, p)
+                assert torch.equal(ck, cp)
+            else:
+                assert (k == p).mean() >= 0.95
+                a, b = ck.sum(0).tolist(), cp.sum(0).tolist()
+                assert all(abs(x - y) <= max(0.02 * y, 2)
+                           for x, y in zip(a, b)), (a, b)

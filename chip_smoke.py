@@ -22,9 +22,13 @@ just after:
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
 against their plain versions on seeded scenes built to cross the shared
-level's exact rewrites (phase level_edges), times everything on the
-card's clock and prints JSON lines.  The last line is ``{"ok": true, "device":
-{...}}``; any failed phase exits non-zero before it.  Without a CUDA
+level's exact rewrites (phase level_edges) and the nearest-hit kernel on
+seeded ray sets built to cross the sweep's (phase nearest_hit), times
+everything on the card's clock (the nearest-hit kernel on planets2's
+shadow sweep and on the stepwise path level's sweep of the chandelier's
+29 spheres, phase nearest_hit_times) and prints JSON lines.  The last
+line is ``{"ok": true, "device": {...}}``; any failed phase exits
+non-zero before it.  Without a CUDA
 device it exits 1 and prints no result.
 """
 import json
@@ -48,7 +52,7 @@ from raytracer_tpu_torch.render.path_renderer import render_path
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.library import chandelier_scene
-from raytracer_tpu_torch.tools import level_edges
+from raytracer_tpu_torch.tools import level_edges, sweep_edges
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
 from raytracer_tpu_torch.trace.whitted import trace_whitted
@@ -94,11 +98,16 @@ OPS_PER_RAY = 10
 OPS_PLAIN_SPHERE, OPS_PLAIN_LIGHT, OPS_PLAIN_CONTINUE = 26, 32, 82
 BYTES_PER_RAY = 24 + 12 + 16     # origin + direction in; rgb + counts out
 # f32 operations of csrc/whitted_trace.cu and csrc/nearest_hit.cu, counted
-# from their code (csrc/sphere.cuh sweep; whitted_trace.cu helpers): the
-# sweep per sphere and ray-level; per level run, the hit point, normal and
-# budget test; a mirror bounce (reflect3); a glass entry (refract3 in and a
-# far-root exit); per walk step the outward refract3, and per internal
-# reflection a reflect3 and a far-root exit; the first normalisation.
+# from their code (whitted_trace.cu helpers): the sweep (csrc/sphere.cuh::
+# test) as the path level's, OPS_SPHERE, OPS_SPHERE_FRONT and
+# OPS_SPHERE_VALID on the tests, the tests in front of the ray and the valid
+# ones of the run's data (core/cuda_intersect.py::sweep_work), and every
+# term of it, 26 a sphere test, as the plain version computes it
+# (W_OPS_SWEEP_PER_SPHERE, reported beside); per level run, the hit point,
+# normal and budget test; a mirror bounce (reflect3); a glass entry
+# (refract3 in and a far-root exit); per walk step the outward refract3,
+# and per internal reflection a reflect3 and a far-root exit; the first
+# normalisation.
 W_OPS_SWEEP_PER_SPHERE = 26
 W_OPS_LEVEL = 20
 W_OPS_MIRROR = 42
@@ -108,6 +117,12 @@ W_OPS_WALK_REFLECT = 82
 W_OPS_PER_RAY = 10
 W_BYTES_IN, W_BYTES_SUPPRESS, W_BYTES_OUT = 24, 4, 1 + 4 + 4 + 12 + 12 + 4 + 4
 NH_BYTES_OUT = 4 + 4 + 1          # t, idx, found
+# nearest_hit: seeded ray sets on the edges of the sweep's rewrites
+# (raytracer_tpu_torch/tools/sweep_edges.py), rays a set; the seed of the
+# stepwise level's camera rays (case b).
+NH_EDGE_SEEDS = (SEED + 30, SEED + 31)
+NH_EDGE_RAYS = 200_000
+NH_LEVEL_SEED = SEED + 14
 # Fallback bounds of the Whitted kernel, the JAX package's own for its TPU
 # kernel (tests/test_pallas_whitted.py:28-49): discrete fields exact, floats
 # within rtol/atol 2e-4, at most 0.1% of pixels off by more than 1/255.
@@ -214,6 +229,32 @@ def traced_work(o, d, u, table, **kw):
     # path_trace_plain is trace_levels over level_plain.
     rgb, counts = cuda_path.trace_levels(counted, o, d, u, table, **kw)
     return rgb, counts, total
+
+
+def sweep_ops(work):
+    """``(f32 operations the sweep needs, every term of it)`` over
+    ``cuda_intersect.sweep_work`` counts."""
+    ops = (OPS_SPHERE * work["sphere_tests"]
+           + OPS_SPHERE_FRONT * work["front_sphere_tests"]
+           + OPS_SPHERE_VALID * work["valid_sphere_tests"])
+    return ops, W_OPS_SWEEP_PER_SPHERE * work["sphere_tests"]
+
+
+def nearest_hit_modes(o, d, sup, table):
+    """The nearest-hit kernel against its plain version on these rays in
+    the four modes (signed t or |t|, exact or fast test): ``(bit_equal,
+    max |t diff| where both found a hit)``."""
+    equal, err = True, 0.0
+    for by_abs in (False, True):
+        for fast in (False, True):
+            a = cuda_intersect.nearest_hit(o, d, sup, table, by_abs=by_abs,
+                                           fast=fast)
+            b = cuda_intersect.nearest_hit_plain(o, d, sup, table,
+                                                 by_abs=by_abs, fast=fast)
+            equal &= all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+            both = a[2] & b[2]
+            err = max(err, float((a[0] - b[0]).abs().where(both, 0.0).max()))
+    return equal, err
 
 
 def stats_close(a, b, rel):
@@ -342,10 +383,12 @@ def whitted_phases(dev, card):
     check(divergent <= 32 and mse_agree < 1e-8,
           f"whitted golden: {divergent} divergent pixels, mse {mse_agree}")
 
-    # nearest_hit: kernel vs plain on planets2's primary rays and a ragged
-    # 3601-ray set, ids suppressed on every third ray, both metrics and
-    # both hit tests; then a planets2 frame with every level's sweep
-    # through the kernel.
+    # nearest_hit: kernel vs plain in the four modes on planets2's primary
+    # rays and a ragged 3601-ray set (ids suppressed on every third ray), on
+    # seeded ray sets built to cross the sweep's rewrites (tools/
+    # sweep_edges.py; every edge must be crossed) and on the stepwise
+    # level's chandelier camera rays (case b); then a planets2 frame with
+    # every level's sweep through the kernel.
     t0 = time.perf_counter()
     m = main["planets2"]
     scene = m["scene"]
@@ -356,29 +399,44 @@ def whitted_phases(dev, card):
     o_r = (torch.rand((3601, 3), device=dev, generator=gen) * 6 - 3)
     d_r = torch.nn.functional.normalize(
         torch.randn((3601, 3), device=dev, generator=gen), dim=1)
-    nh_err, nh_equal = 0.0, True
-    for o_s, d_s in ((m["o"], dn), (o_r.contiguous(), d_r.contiguous())):
+    sets = {}
+    for name, o_s, d_s in (("planets2_primary", m["o"], dn),
+                           ("ragged_3601", o_r.contiguous(),
+                            d_r.contiguous())):
         i = torch.arange(o_s.shape[0], device=dev)
         sup = torch.where(i % 3 == 0, table.ids[(i // 3) % n_sph],
                           NO_SUPPRESS).to(torch.int32)
-        for by_abs in (False, True):
-            for fast in (False, True):
-                a = cuda_intersect.nearest_hit(o_s, d_s, sup, table,
-                                               by_abs=by_abs, fast=fast)
-                b = cuda_intersect.nearest_hit_plain(o_s, d_s, sup, table,
-                                                     by_abs=by_abs, fast=fast)
-                nh_equal &= all(bool(torch.equal(x, y)) for x, y in zip(a, b))
-                both = a[2] & b[2]
-                nh_err = max(nh_err, float(
-                    (a[0] - b[0]).abs().where(both, 0.0).max()))
+        sets[name] = (o_s, d_s, sup, table)
+    edges = {}
+    for seed in NH_EDGE_SEEDS:
+        e_table, e_o, e_d, e_sup = sweep_edges.edge_case(seed, NH_EDGE_RAYS,
+                                                         dev)
+        sets[f"edges_{seed}"] = (e_o, e_d, e_sup, e_table)
+        edges[f"edges_{seed}"] = sweep_edges.edge_counts(e_o, e_d, e_sup,
+                                                         e_table)
+    l_table, l_o, l_d = sweep_edges.level_rays(dev, NH_LEVEL_SEED)
+    sets["chandelier_level"] = (l_o, l_d, None, l_table)
+    edges["chandelier_level"] = sweep_edges.edge_counts(l_o, l_d, None,
+                                                        l_table)
+    nh_err, nh_equal, per_set = 0.0, True, {}
+    for name, (o_s, d_s, sup, tab) in sets.items():
+        eq, err = nearest_hit_modes(o_s, d_s, sup, tab)
+        per_set[name] = {"rays": o_s.shape[0], "bit_equal": eq,
+                         "max_abs_err": err}
+        nh_equal &= eq
+        nh_err = max(nh_err, err)
     img_s = render_whitted(scene, m["gl"], m["pl"], m["o"], m["d"], m["h"],
                            m["w"], impl="plain", sweep="kernel", **m["kw"])
     sweep_equal = bool(torch.equal(img_s, m["img_p"]))
-    emit({"phase": "nearest_hit", "rays": [m["o"].shape[0], 3601],
+    crossed = all(v > 0 for k, v in edges.items() if k.startswith("edges_")
+                  for v in v.values())
+    emit({"phase": "nearest_hit", "sets": per_set,
           "bit_equal": nh_equal, "max_abs_err": nh_err,
+          "edge_counts": edges, "every_edge_crossed": crossed,
           "sweep_kernel_frame_bit_equal": sweep_equal,
           "seconds": time.perf_counter() - t0})
-    check(nh_equal, f"nearest_hit kernel vs plain differ ({nh_err})")
+    check(nh_equal, f"nearest_hit kernel vs plain differ ({per_set})")
+    check(crossed, f"an edge ray set crosses no ray on some edge: {edges}")
     check(sweep_equal, "planets2 frame with sweep='kernel' differs from "
           "the plain frame")
 
@@ -396,29 +454,55 @@ def whitted_phases(dev, card):
     work = {}
     cuda_whitted.whitted_trace_plain(o, d, None, table, max_bounces=mb,
                                      counters=work)
-    w_ops = (W_OPS_PER_RAY * R
-             + (W_OPS_SWEEP_PER_SPHERE * n_sph + W_OPS_LEVEL) * work["levels"]
-             + W_OPS_MIRROR * work["mirror"]
-             + W_OPS_GLASS_ENTRY * work["glass"]
-             + W_OPS_WALK_STEP * work["walk_steps"]
-             + W_OPS_WALK_REFLECT * (work["walk_steps"] - work["walk_exits"]))
+    w_sweep, w_sweep_every = sweep_ops(work)
+    w_rest = (W_OPS_PER_RAY * R + W_OPS_LEVEL * work["levels"]
+              + W_OPS_MIRROR * work["mirror"]
+              + W_OPS_GLASS_ENTRY * work["glass"]
+              + W_OPS_WALK_STEP * work["walk_steps"]
+              + W_OPS_WALK_REFLECT * (work["walk_steps"]
+                                      - work["walk_exits"]))
+    w_ops = w_sweep + w_rest
     w_bytes = (W_BYTES_IN + W_BYTES_OUT) * R
     w_bound, w_by = bound(w_ops, w_bytes)
-    # The nearest-hit kernel as the shadow sweep runs it: from the
+    # The nearest-hit kernel as the shadow sweep runs it (case a): from the
     # termini toward the first point light, the shaded sphere suppressed.
-    res = m["res_k"]
-    light = m["pl"].position[0]
-    to_light = torch.nn.functional.normalize(light - res.point, dim=1)
-    self_id = table.ids[res.idx]
-    nh_args = (res.point, to_light.contiguous(), self_id, table)
-    for _ in range(3):
-        cuda_intersect.nearest_hit(*nh_args)
-    nh_ms = cuda_ms(lambda: cuda_intersect.nearest_hit(*nh_args), 50)
-    nh_plain_ms = cuda_ms(lambda: cuda_intersect.nearest_hit_plain(*nh_args),
-                          3)
-    nh_bound, nh_by = bound(
-        W_OPS_SWEEP_PER_SPHERE * n_sph * R,
-        (W_BYTES_IN + W_BYTES_SUPPRESS + NH_BYTES_OUT) * R)
+    nh_args = (*sweep_edges.shadow_rays(m["res_k"], m["pl"], table), table)
+    nh_cases = {"a_shadow_planets2": (nh_args, {}),
+                "b_level_chandelier_exact": ((l_o, l_d, None, l_table),
+                                             {"by_abs": True}),
+                "b_level_chandelier_fast": ((l_o, l_d, None, l_table),
+                                            {"by_abs": True, "fast": True})}
+    nh_times = {}
+    for name, (args, kw) in nh_cases.items():
+        for _ in range(3):
+            cuda_intersect.nearest_hit(*args, **kw)
+        ms = cuda_ms(lambda: cuda_intersect.nearest_hit(*args, **kw), 50)
+        plain_ms = cuda_ms(lambda: cuda_intersect.nearest_hit_plain(
+            *args, **kw), 3)
+        n = args[0].shape[0]
+        nh_work = cuda_intersect.sweep_work(*args, fast=kw.get("fast", False))
+        ops, ops_every = sweep_ops(nh_work)
+        nbytes = (W_BYTES_IN + (0 if args[2] is None else W_BYTES_SUPPRESS)
+                  + NH_BYTES_OUT) * n
+        b_ms, b_by = bound(ops, nbytes)
+        nh_times[name] = {
+            "rays": n, "spheres": len(args[3].spec), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / ms, "bytes": nbytes, "ops": ops,
+            "ops_every_term": ops_every,
+            "bound_ms_every_term": bound(ops_every, nbytes)[0],
+            "work": nh_work}
+    nh = nh_times["a_shadow_planets2"]
+    emit({"phase": "nearest_hit_times", **card, "cases": nh_times,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    table_ms = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        material_flags(scene)
+        cuda_intersect.sphere_table(scene)
+        torch.cuda.synchronize()
+        table_ms.append((time.perf_counter() - t1) * 1e3)
     walls = []
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(5):
@@ -433,15 +517,18 @@ def whitted_phases(dev, card):
           "whitted_trace_ms": w_ms, "whitted_trace_plain_ms": w_plain_ms,
           "whitted_trace_bound_ms": w_bound, "whitted_trace_bound_by": w_by,
           "whitted_trace_bound_ops": w_ops,
+          "whitted_trace_bound_ops_every_term": w_sweep_every + w_rest,
           "whitted_trace_bound_bytes": w_bytes,
           "whitted_trace_bound_share": w_bound / w_ms, "work": work,
-          "nearest_hit_ms": nh_ms, "nearest_hit_plain_ms": nh_plain_ms,
-          "nearest_hit_bound_ms": nh_bound, "nearest_hit_bound_by": nh_by,
-          "nearest_hit_bound_share": nh_bound / nh_ms,
+          "nearest_hit_ms": nh["ms"], "nearest_hit_plain_ms": nh["plain_ms"],
+          "nearest_hit_bound_ms": nh["bound_ms"],
+          "nearest_hit_bound_by": nh["bound_by"],
+          "nearest_hit_bound_share": nh["bound_share"],
           "launches_per_frame": m["launches"],
           "render_whitted_wall_ms": walls,
           "render_whitted_wall_ms_min": min(walls),
           "primary_rays_per_s_wall": R / (min(walls) / 1e3),
+          "material_flags_and_sphere_table_host_ms": sorted(table_ms)[10],
           "grid_rays_host_ms": m["camera_ms"],
           "max_memory_allocated_bytes": peak, "library_ms": None,
           "library_note": "no single PyTorch call computes either function",
@@ -458,8 +545,9 @@ def whitted_phases(dev, card):
          "source": "raytracer_tpu_torch/csrc/nearest_hit.cu",
          "replaces": "raytracer_tpu/core/pallas_intersect.py:42",
          "launches": m["launches"]["nearest_hit"], "max_abs_err": nh_err,
-         "ms": nh_ms, "plain_ms": nh_plain_ms, "bound_ms": nh_bound,
-         "bound_by": nh_by, "library_ms": None}]
+         "ms": nh["ms"], "plain_ms": nh["plain_ms"],
+         "bound_ms": nh["bound_ms"], "bound_by": nh["bound_by"],
+         "library_ms": None}]
 
 
 def student_params(kind, width=G_WIDTH, seed=SEED, hidden=2):

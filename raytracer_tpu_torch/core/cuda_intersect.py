@@ -20,17 +20,18 @@ import ctypes
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import native
-from .intersect import nearest_hit_c
+from .intersect import inside_threshold, nearest_hit_c
 from ..scene.types import Scene
 from ..trace.path import scene_spec
 
 # The kernels stage the table in at most 48 KB of shared memory, 36 bytes a
 # sphere (csrc/sphere.cuh).
 MAX_SPHERES = 1024
-ROW = 8         # cx cy cz r ior mirror glass pad (csrc/sphere.cuh kRow)
+ROW = 8         # cx cy cz r ior mirror glass T(r) (csrc/sphere.cuh kRow)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +41,9 @@ class SphereTable:
     ``spec``: ``scene_spec`` rows (Python floats, exact values of the
     scene's dtype); ``mirror``/``glass``: per-sphere Python bools, the
     ``== 1.0`` material rule with ``enable_mirror``/``enable_glass`` applied;
-    ``spheres [N, 8]`` float32 ``cx cy cz r ior mirror glass 0``;
-    ``ids [N]`` int32."""
+    ``spheres [N, 8]`` float32 ``cx cy cz r ior mirror glass T(r)``, the
+    last the exact inside test's threshold on ``d2``
+    (``intersect.inside_threshold``); ``ids [N]`` int32."""
     spec: tuple
     mirror: tuple
     glass: tuple
@@ -54,13 +56,13 @@ def sphere_table(scene: Scene, enable_glass: bool = True,
     spec = scene_spec(scene)
     mirror = tuple(enable_mirror and row[7] == 1.0 for row in spec)
     glass = tuple(enable_glass and row[8] == 1.0 for row in spec)
-    rows = [(row[0], row[1], row[2], row[3], row[10], float(m), float(g),
-             0.0) for row, m, g in zip(spec, mirror, glass)]
+    rows = np.array([(row[0], row[1], row[2], row[3], row[10], m, g, 0.0)
+                     for row, m, g in zip(spec, mirror, glass)],
+                    dtype=np.float32).reshape(len(spec), ROW)
+    rows[:, 7] = inside_threshold(rows[:, 3])
     dev = scene.device
     return SphereTable(
-        spec, mirror, glass,
-        spheres=torch.tensor(rows, dtype=torch.float32,
-                             device=dev).reshape(len(spec), ROW),
+        spec, mirror, glass, spheres=torch.from_numpy(rows).to(dev),
         ids=torch.tensor([row[11] for row in spec], dtype=torch.int32,
                          device=dev))
 
@@ -149,3 +151,32 @@ def nearest_hit_plain(origins: torch.Tensor, dirs: torch.Tensor,
                       dirs[:, 0], dirs[:, 1], dirs[:, 2], table.spec,
                       fast=fast, by_abs=by_abs, suppress_id=suppress_id)
     return h.t, h.idx, h.found
+
+
+def sweep_work(origins: torch.Tensor, dirs: torch.Tensor,
+               suppress_id: Optional[torch.Tensor], table: SphereTable, *,
+               fast: bool = False,
+               active: Optional[torch.Tensor] = None) -> dict:
+    """The sweep's work on these rays, as ``csrc/sphere.cuh::test`` does it:
+    ``sphere_tests`` (every sphere against every ray), ``front_sphere_tests``
+    (``tca >= 0``, where ``d2`` and the inside test are needed) and
+    ``valid_sphere_tests`` (inside and not suppressed, where ``thc``, ``t``
+    and the metric are needed).  ``active [R]`` bool: count only those rays.
+    ``chip_smoke.py`` bounds the Whitted kernels by these counts."""
+    ox, oy, oz = origins.unbind(1)
+    dx, dy, dz = dirs.unbind(1)
+    if active is None:
+        active = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
+    front = valid = 0
+    for row, thr in zip(table.spec, table.spheres[:, 7].tolist()):
+        lx, ly, lz = row[0] - ox, row[1] - oy, row[2] - oz
+        tca = lx * dx + ly * dy + lz * dz
+        d2 = torch.clamp_min(lx * lx + ly * ly + lz * lz - tca * tca, 0.0)
+        ahead = active & (tca >= 0.0)
+        inside = (d2 <= row[3] * row[3]) if fast else (d2 <= thr)
+        if suppress_id is not None:
+            inside = inside & (suppress_id != row[-1])
+        front += int(ahead.sum())
+        valid += int((ahead & inside).sum())
+    return {"sphere_tests": len(table.spec) * int(active.sum()),
+            "front_sphere_tests": front, "valid_sphere_tests": valid}

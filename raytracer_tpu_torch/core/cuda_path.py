@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import native, vec
-from .intersect import nearest_hit_c
+from .intersect import inside_threshold, nearest_hit_c
 from ..trace.path import _direct_lighting_c, is_student, observation_c
 from ..trace.sampling import fb_action_to_direction_c, local_to_world_c
 
@@ -84,36 +84,6 @@ class PathTable:
     emissive: torch.Tensor
     inside: torch.Tensor
     light_cut: torch.Tensor
-
-
-def inside_threshold(radius) -> np.ndarray:
-    """``T(r)`` per radius, float32: the largest float32 ``x`` with
-    ``sqrt(x) <= r`` in float32.  The square root is correctly rounded and
-    monotone, so for every float32 ``d2 >= 0``, ``+inf`` or NaN,
-    ``sqrt(d2) <= r`` exactly when ``d2 <= T(r)``: the sweep's exact inside
-    test without its square root (``csrc/path_common.cuh::sweep``).  It
-    starts at ``r * r`` and steps by one float while the square root
-    allows; ``r`` NaN gives NaN, ``r < 0`` gives ``-inf``, ``r`` = +inf
-    gives +inf (``d2 <= T`` never, never, always)."""
-    r = np.asarray(radius, dtype=np.float32)
-    inf = np.float32(np.inf)
-    with np.errstate(over="ignore", invalid="ignore"):
-        t = np.where(r > 0, r * r, np.float32(0.0)).astype(np.float32)
-        step = (r > 0) & (r < inf)
-        while True:          # down while sqrt(t) > r (t = inf for huge r)
-            down = step & (np.sqrt(t) > r)
-            if not down.any():
-                break
-            t = np.where(down, np.nextafter(t, np.float32(0.0)), t)
-        while True:          # up while the next float still passes
-            nxt = np.nextafter(t, inf)
-            up = step & (np.sqrt(nxt) <= r)
-            if not up.any():
-                break
-            t = np.where(up, nxt, t)
-    t = np.where(r == inf, inf, t)
-    t = np.where(r < 0, -inf, t)
-    return np.where(np.isnan(r), np.float32(np.nan), t).astype(np.float32)
 
 
 def light_cut(colours) -> np.ndarray:

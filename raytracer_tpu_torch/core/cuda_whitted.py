@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 
 from . import native, vec
-from .cuda_intersect import SphereTable, check_rays, nearest_hit
+from .cuda_intersect import (SphereTable, check_rays, nearest_hit,
+                             sweep_work)
 from .intersect import NO_SUPPRESS, nearest_hit_c
 from ..trace.whitted import (ACTIVE, DONE_HIT, DONE_NONE, TraceResult,
                              _refract_walk_c)
@@ -96,7 +97,8 @@ def whitted_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
 
     ``sweep="kernel"`` takes each level's nearest hit from the nearest-hit
     kernel (float32).  ``counters``: optional dict of ints that gains the
-    work done (``levels`` active ray-levels, ``mirror`` and ``glass``
+    work done (``levels`` active ray-levels, their sweep's work as
+    ``cuda_intersect.sweep_work`` counts it, ``mirror`` and ``glass``
     bounces, ``walk_steps``, ``walk_exits``), from which ``chip_smoke.py``
     counts the kernel's operations; it costs host reads."""
     dtype, dev = origins.dtype, origins.device
@@ -118,7 +120,9 @@ def whitted_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
     fbr = dict(res)
     fb_valid = torch.zeros((R,), dtype=torch.bool, device=dev)
     if counters is not None:
-        for k in ("levels", "mirror", "glass", "walk_steps", "walk_exits"):
+        for k in ("levels", "sphere_tests", "front_sphere_tests",
+                  "valid_sphere_tests", "mirror", "glass", "walk_steps",
+                  "walk_exits"):
             counters.setdefault(k, 0)
 
     rows = table.spec
@@ -140,6 +144,11 @@ def whitted_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
             break
         if counters is not None:
             counters["levels"] += int(active.sum())
+            work = sweep_work(torch.stack([ox, oy, oz], 1),
+                              torch.stack([dx, dy, dz], 1), sup, table,
+                              fast=fast, active=active)
+            for k, v in work.items():
+                counters[k] += v
         if sweep == "kernel":
             t, idx, found = nearest_hit(
                 torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1),

@@ -8,12 +8,14 @@ path tracers (``|t|``, no suppression): per-sphere values chosen under the
 same ``better`` mask as the hit, so no gather follows the sweep.  Same op
 order per sphere as the JAX sweep; the strict ``<`` keeps the first
 minimum, like ``argmin``.  ``single_sphere_exit_c`` is the far-root hit
-of the refraction walk.
+of the refraction walk.  ``inside_threshold`` gives the kernels' exact
+inside test without its square root.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import vec
@@ -104,3 +106,35 @@ def single_sphere_exit_c(ox, oy, oz, dx, dy, dz, cx, cy, cz, radius):
     px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
     nx, ny, nz = vec.normalise_safe_c(px - cx, py - cy, pz - cz)
     return valid, px, py, pz, nx, ny, nz
+
+
+def inside_threshold(radius) -> np.ndarray:
+    """``T(r)`` per radius, float32: the largest float32 ``x`` with
+    ``sqrt(x) <= r`` in float32.  The square root is correctly rounded and
+    monotone, so for every float32 ``d2 >= 0``, ``+inf`` or NaN,
+    ``sqrt(d2) <= r`` exactly when ``d2 <= T(r)``: the sweeps' exact inside
+    test without its square root (``csrc/path_common.cuh::sweep`` reads
+    ``PathTable.inside``, ``csrc/sphere.cuh::test`` column 7 of
+    ``SphereTable.spheres``).  It
+    starts at ``r * r`` and steps by one float while the square root
+    allows; ``r`` NaN gives NaN, ``r < 0`` gives ``-inf``, ``r`` = +inf
+    gives +inf (``d2 <= T`` never, never, always)."""
+    r = np.asarray(radius, dtype=np.float32)
+    inf = np.float32(np.inf)
+    with np.errstate(over="ignore", invalid="ignore"):
+        t = np.where(r > 0, r * r, np.float32(0.0)).astype(np.float32)
+        step = (r > 0) & (r < inf)
+        while True:          # down while sqrt(t) > r (t = inf for huge r)
+            down = step & (np.sqrt(t) > r)
+            if not down.any():
+                break
+            t = np.where(down, np.nextafter(t, np.float32(0.0)), t)
+        while True:          # up while the next float still passes
+            nxt = np.nextafter(t, inf)
+            up = step & (np.sqrt(nxt) <= r)
+            if not up.any():
+                break
+            t = np.where(up, nxt, t)
+    t = np.where(r == inf, inf, t)
+    t = np.where(r < 0, -inf, t)
+    return np.where(np.isnan(r), np.float32(np.nan), t).astype(np.float32)

@@ -18,17 +18,19 @@
 //
 // What bounds it on an H100: bytes.  Per ray it reads the origin and the
 // direction (24 bytes, 28 with suppressed ids) and writes the result (41
-// bytes: hit, idx, t, point, normal, bounces, through).  Its arithmetic is
-// about 26 f32 operations a sphere in each level a ray runs, 20 more a level
-// that hits, 42 for a mirror bounce, 98 for a glass entry, and 61 for each
-// walk step (82 more when that step reflects internally): on the notebook
-// scenes (10 spheres, ~1-2 levels a ray) that is ~300-700 operations a ray
-// against ~65 bytes, below the card's ~20 operations a byte.  chip_smoke.py
-// counts both from each run's data.
+// bytes: hit, idx, t, point, normal, bounces, through).  Its arithmetic, in
+// each level a ray runs, is the sweep's (csrc/sphere.cuh::test: 9 f32
+// operations a sphere test, 9 more in front of the ray, 7 more for a valid
+// sphere), 20 more a level that hits, 42 for a mirror bounce, 98 for a
+// glass entry, and 61 for each walk step (82 more when that step reflects
+// internally): on the notebook scenes (10 spheres, ~1-2 levels a ray) a few
+// hundred operations a ray against ~65 bytes, below the card's ~10
+// non-fused operations a byte.  chip_smoke.py counts both from each run's
+// data.
 //
 // Design for that bound: one thread per ray and a 128-thread block with a
-// masked ragged tail (no tiles, no padding); the scene table (32-byte rows
-// and int32 ids) is staged in shared memory once per block, its size set at
+// masked ragged tail (no tiles, no padding); the scene table is staged in
+// shared memory once per block as sphere.cuh lays it out, its size set at
 // launch, so one build serves every scene; a runtime level loop that a ray
 // leaves as soon as it is no longer active, and a walk loop that it leaves
 // as soon as it exits the sphere (this equals the TPU kernel's fixed unroll
@@ -40,7 +42,6 @@
 
 namespace {
 
-using sphere::kRow;
 using sphere::max_nan;
 using sphere::clamp_nan;
 using sphere::normalise3;
@@ -91,17 +92,17 @@ __device__ __forceinline__ bool refract3(float vx, float vy, float vz,
 }
 
 // intersect.single_sphere_exit_c: the far root t = tca + thc against the
-// ray's own sphere, its point and outward normal.
+// ray's own sphere (rr = r*r, as staged), its point and outward normal.
 __device__ __forceinline__ void sphere_exit(float ox, float oy, float oz,
                                             float dx, float dy, float dz,
                                             float cx, float cy, float cz,
-                                            float r, float& px, float& py,
+                                            float rr, float& px, float& py,
                                             float& pz, float& nx, float& ny,
                                             float& nz) {
   const float lx = cx - ox, ly = cy - oy, lz = cz - oz;
   const float tca = lx * dx + ly * dy + lz * dz;
   const float d2 = max_nan(lx * lx + ly * ly + lz * lz - tca * tca, 0.0f);
-  const float thc = sqrtf(max_nan(r * r - d2, 0.0f));
+  const float thc = sqrtf(max_nan(rr - d2, 0.0f));
   const float t = tca + thc;
   px = ox + dx * t;
   py = oy + dy * t;
@@ -125,10 +126,9 @@ whitted_trace_kernel(const float* __restrict__ origins,
                      float* __restrict__ normal_out,
                      int* __restrict__ bounces_out,
                      int* __restrict__ through_out) {
-  extern __shared__ float s_mem[];
-  float* s_sph = s_mem;
-  int* s_ids = reinterpret_cast<int*>(s_mem + n_spheres * kRow);
-  sphere::stage(spheres, ids, n_spheres, s_sph, s_ids);
+  extern __shared__ float4 s_mem[];
+  const sphere::Table tb = sphere::carve(s_mem, n_spheres);
+  sphere::stage(tb, spheres, ids, n_spheres, fast != 0);
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -146,23 +146,24 @@ whitted_trace_kernel(const float* __restrict__ origins,
   bool fb_valid = false;
 
   for (int lvl = 0; lvl < max_bounces + 2; ++lvl) {
-    const sphere::Hit h = sphere::sweep(s_sph, s_ids, n_spheres, ox, oy, oz,
-                                        dx, dy, dz, sup, false, fast != 0);
+    const sphere::Hit h = sphere::sweep(tb, n_spheres, ox, oy, oz, dx, dy,
+                                        dz, sup, false);
     // Chain fails: no hit, or the bounce budget is spent.
     if (!h.found || bounces > max_bounces) {
       if (fb_valid) res = fb;
       status = fb_valid ? kDoneHit : kDoneNone;
       break;
     }
-    const float* sp = s_sph + h.idx * kRow;
+    const float4 c = tb.centre[h.idx];
+    const float4 at = tb.attr[h.idx];         // r*r ior mirror glass
     const float px = ox + dx * h.t;
     const float py = oy + dy * h.t;
     const float pz = oz + dz * h.t;
-    float nx = px - sp[0], ny = py - sp[1], nz = pz - sp[2];
+    float nx = px - c.x, ny = py - c.y, nz = pz - c.z;
     normalise3(nx, ny, nz);
     const Record here{h.idx, px, py, pz, nx, ny, nz, h.t, bounces, through};
-    const bool mirror = sp[5] != 0.0f;
-    const bool glass = !mirror && sp[6] != 0.0f;
+    const bool mirror = at.z != 0.0f;
+    const bool glass = !mirror && at.w != 0.0f;
     if (!mirror && !glass) {                     // terminal
       res = here;
       status = kDoneHit;
@@ -180,13 +181,13 @@ whitted_trace_kernel(const float* __restrict__ origins,
       dy = ry;
       dz = rz;
     } else {                                     // glass walk
-      const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-      const float ior = sp[4];
+      const float cx = c.x, cy = c.y, cz = c.z, rr = at.x;
+      const float ior = at.y;
       float rdx, rdy, rdz;
       const bool tir_in = refract3(dx, dy, dz, nx, ny, nz, 1.0f / ior, rdx,
                                    rdy, rdz);
       float epx, epy, epz, enx, eny, enz;
-      sphere_exit(px, py, pz, rdx, rdy, rdz, cx, cy, cz, r, epx, epy, epz,
+      sphere_exit(px, py, pz, rdx, rdy, rdz, cx, cy, cz, rr, epx, epy, epz,
                   enx, eny, enz);
       bool exited = false;
       float wpx = 0.0f, wpy = 0.0f, wpz = 0.0f;
@@ -208,7 +209,7 @@ whitted_trace_kernel(const float* __restrict__ origins,
         float rlx, rly, rlz;
         reflect3(rdx, rdy, rdz, enx, eny, enz, rlx, rly, rlz);
         float npx, npy, npz, nnx, nny, nnz;
-        sphere_exit(epx, epy, epz, rlx, rly, rlz, cx, cy, cz, r, npx, npy,
+        sphere_exit(epx, epy, epz, rlx, rly, rlz, cx, cy, cz, rr, npx, npy,
                     npz, nnx, nny, nnz);
         rdx = rlx;
         rdy = rly;
@@ -233,7 +234,7 @@ whitted_trace_kernel(const float* __restrict__ origins,
       dz = wdz;
       ++through;
     }
-    sup = s_ids[h.idx];
+    sup = tb.id[h.idx];
     ++bounces;
   }
 
@@ -262,8 +263,7 @@ extern "C" int whitted_trace_launch(const float* origins, const float* dirs,
                                     int* idx, float* t, float* point,
                                     float* normal, int* bounces,
                                     int* through, void* stream) {
-  const size_t smem = static_cast<size_t>(n_spheres) *
-                      (kRow * sizeof(float) + sizeof(int));
+  const size_t smem = static_cast<size_t>(n_spheres) * sphere::kStagedBytes;
   if (n_spheres < 1 || smem > 48 * 1024 || n_rays < 0 || max_bounces < 0 ||
       max_bounces > INT_MAX - 2)
     return static_cast<int>(cudaErrorInvalidValue);

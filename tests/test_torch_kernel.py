@@ -20,7 +20,7 @@ from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.library import chandelier_scene
 from raytracer_tpu_torch.scene.types import scene_astype
-from raytracer_tpu_torch.tools import level_edges
+from raytracer_tpu_torch.tools import level_edges, sweep_edges
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
 from raytracer_tpu_torch.trace.whitted import trace_whitted
@@ -566,3 +566,37 @@ def test_level_edges_match_plain_on_card():
                 a, b = ck.sum(0).tolist(), cp.sum(0).tolist()
                 assert all(abs(x - y) <= max(0.02 * y, 2)
                            for x, y in zip(a, b)), (a, b)
+
+
+@pytest.mark.cuda
+def test_sweep_edges_match_plain_on_card():
+    """On the card, on seeded ray sets built to cross the sweep's exact
+    rewrites (tools/sweep_edges.py: d2 in (fl(r*r), T(r)] and one float
+    above, tca at +-0 and at subnormals, equal metrics, the nearest sphere
+    suppressed, origins inside, NaN and infinite components; every edge
+    crossed), a ragged count and a view 12 bytes off 16-byte alignment,
+    and the chandelier's camera rays: the nearest-hit kernel equals
+    nearest_hit_plain bit for bit in all four modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    table, o, d, sup = sweep_edges.edge_case(40, 40_000, "cuda")
+    assert all(v > 0 for v in
+               sweep_edges.edge_counts(o, d, sup, table).values())
+    l_table, l_o, l_d = sweep_edges.level_rays("cuda", 41, 200, 150, 2)
+    cases = [(o, d, sup, table), (o[:3601], d[:3601], sup[:3601], table),
+             (o[1:], d[1:], sup[1:], table),      # 12 and 4 bytes off
+             (l_o, l_d, None, l_table)]
+    before = cuda_intersect.nearest_hit.launches
+    for co, cd, cs, ct in cases:
+        for by_abs in (False, True):
+            for fast in (False, True):
+                a = cuda_intersect.nearest_hit(co, cd, cs, ct, by_abs=by_abs,
+                                               fast=fast)
+                b = cuda_intersect.nearest_hit_plain(co, cd, cs, ct,
+                                                     by_abs=by_abs, fast=fast)
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), (
+                    co.shape, by_abs, fast)
+    torch.cuda.synchronize()
+    assert cuda_intersect.nearest_hit.launches == before + 4 * len(cases)

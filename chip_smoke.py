@@ -17,7 +17,15 @@ just after:
   impl="kernel" (the student inside the path kernel: a bf16 student on the
   tensor cores in csrc/path_guided.cu, an f32 one as scalar multiply-adds
   in csrc/path_trace.cu) and impl="hybrid" (the per-level kernel, the
-  student between levels).
+  student between levels);
+* the full FB agent as a guide (bench.py's full-agent cell): the chandelier
+  at 200x100, 8 spp, 8 bounces, mirror_threshold=0.9, fb_prob=1.0, an
+  agent at FBConfig()'s width (z 64, encoder 512, backward 256) with
+  seeded weights, through ``render_path`` with impl="stepwise" (the
+  nearest-hit kernel a level, the guide between levels; every level
+  guided, and guide_max_level=3) and impl="hybrid" (the level kernel a
+  level); phases fb_agent and fb_agent_times, then one 800x600@8spp/8
+  frame with guide_max_level=3 (fb_agent_800x600).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -44,7 +52,10 @@ import torch
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted, native, vec)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
+from raytracer_tpu_torch.fb.config import FBConfig
 from raytracer_tpu_torch.fb.distill import DistilledGuide
+from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
+                                              small_light_indices)
 from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
                                              model_path_for)
 from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
@@ -151,6 +162,15 @@ G_BYTES_FB = 4
 LVL_BYTES_PER_RAY = 12 + 12 + 1 + 1 + 24 + 12 + 12
 LVL_BYTES_HIT = 44
 LVL_BYTES_U = 8
+# The full FB agent (bench.py's full-agent cell, bench.py:108-170): frame,
+# the stepwise deployment knob (raytracer_tpu/trace/path.py:200-207) and
+# the larger frame run once.  The guide's products run as cuBLAS SGEMM in
+# full f32, bounded by the data sheet's 67 TFLOP/s f32 rate (a fused
+# multiply-add counted as two operations).
+A_W, A_H = 200, 100
+A_GML = 3
+A_BIG_W, A_BIG_H = 800, 600
+PEAK_F32_FLOPS = 67e12
 # level_edges: seeded scenes on the edges of the level's exact rewrites
 # (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
 EDGE_SEEDS = (SEED + 20, SEED + 21, SEED + 22)
@@ -980,6 +1000,318 @@ def guided_phases(dev, card, scene, params, libs):
          "bound_by": l_by, "library_ms": None}]
 
 
+def agent_guide_flops(cfg):
+    """Flops of one guide row at ``cfg``'s widths, two a multiply-add: the
+    encoder's products (obs->e, its three residual blocks, the attention's
+    value and out projections, e->e, e->2z) and the backward model's trunk
+    and mean head (2z->b, two residual blocks, b->2)."""
+    e, b, z = cfg.e_hidden_dim, cfg.b_hidden_dim, cfg.z_dim
+    enc = cfg.obs_dim * e + 3 * 2 * e * e + 2 * e * e + e * e + e * 2 * z
+    bwd = 2 * z * b + 2 * 2 * b * b + b * cfg.action_dim
+    return 2 * (enc + bwd)
+
+
+class TimedGuide:
+    """A guide with CUDA events around each call; ``ms()`` sums them."""
+
+    def __init__(self, guide):
+        self.guide, self.events = guide, []
+
+    def __call__(self, obs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.guide(obs)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def device_ms(fn, kernel):
+    """``(device ms, launches)`` of the CUDA kernels whose name holds
+    ``kernel`` in one call of ``fn``, from ``torch.profiler``'s kernel
+    events: at small shapes the wrapper's host time exceeds the kernel's,
+    so events around a run of launches time the host."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    return sum(us) / 1e3, len(us)
+
+
+def recorded_launches(module, name, frame):
+    """Run ``frame()`` with ``module.<name>`` (a kernel wrapper) recording
+    its calls: ``[(args, kwargs, output)]``.  While it stands in for the
+    wrapper, the wrapper's launches land on the recorder's own count."""
+    real, calls = getattr(module, name), []
+
+    def recorder(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    recorder.launches = 0
+    setattr(module, name, recorder)
+    try:
+        frame()
+    finally:
+        setattr(module, name, real)
+    torch.cuda.synchronize()
+    return calls
+
+
+def fb_agent_phases(dev, card, scene, params):
+    """The full FB agent's phases (bench.py's full-agent cell): the main
+    path through render_path on three routes, each bit for bit against the
+    others where their semantics meet, then their times and one larger
+    frame."""
+    # fb_agent: f32 stays f32 on the card (TF32 is another precision).
+    t0 = time.perf_counter()
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "torch.backends.cuda.matmul.allow_tf32 is on: TF32 matmuls")
+    check(torch.get_float32_matmul_precision() == "highest",
+          f"float32 matmul precision is "
+          f"{torch.get_float32_matmul_precision()!r}, not 'highest'")
+    cfg = FBConfig()
+    agent = TrainedFBAgent(None, scene, small_light_indices(scene),
+                           params["camera_position"], config=cfg, seed=SEED,
+                           device=dev)
+    guide = agent.as_guide_fn()
+    fkw = dict(width=A_W, height=A_H, spp=SPP, max_bounces=BOUNCES,
+               fov=params["fov"], camera_position=params["camera_position"],
+               mirror_threshold=G_THRESHOLD, background=BG, device=dev,
+               fb_prob=G_FB_PROB)
+    routes = {"stepwise": dict(impl="stepwise"),
+              f"stepwise_guide_max_level_{A_GML}": dict(
+                  impl="stepwise", guide_max_level=A_GML),
+              "hybrid": dict(impl="hybrid")}
+
+    def frame(rkw, g=guide, **kw):
+        out = render_path(scene, guide_fn=g, **rkw, **dict(fkw, **kw),
+                          generator=torch.Generator(dev).manual_seed(
+                              SEED + 40))
+        torch.cuda.synchronize()
+        return out
+
+    frames, launches = {}, {}
+    for name, rkw in routes.items():
+        reset_counts()
+        img, st = frame(rkw)
+        launches[name] = {
+            "nearest_hit": cuda_intersect.nearest_hit.launches,
+            "path_level": cuda_level.path_level.launches,
+            "path_trace": cuda_path.path_trace.launches}
+        frames[name] = (img, st.as_dict())
+        check(tuple(img.shape) == (A_H, A_W, 3)
+              and bool(torch.isfinite(img).all()),
+              f"fb_agent {name}: image {tuple(img.shape)} not finite")
+        check(st.as_dict()["fb_used"] > 0, f"fb_agent {name}: no guided "
+              f"bounce ({st.as_dict()})")
+    gml = f"stepwise_guide_max_level_{A_GML}"
+    for name in ("stepwise", gml):
+        check(launches[name]["nearest_hit"] == BOUNCES
+              and launches[name]["path_level"] == 0,
+              f"fb_agent {name}: launches {launches[name]}, not one "
+              f"nearest_hit a level")
+    check(launches["hybrid"]["path_level"] == BOUNCES
+          and launches["hybrid"]["nearest_hit"] == 0,
+          f"fb_agent hybrid: launches {launches['hybrid']}")
+
+    # The same agent on the frame's draws through trace_path: the stepwise
+    # route with the kernel sweep and with nearest_hit_plain as its sweep,
+    # the hybrid, and guide_max_level=3 against the hybrid whose fb plane is
+    # 2.0 (never below fb_prob) from level 3 on.
+    gen = torch.Generator(dev).manual_seed(SEED + 41)
+    jitter = torch.rand((SPP, A_H, A_W, 2), device=dev, generator=gen)
+    o, d = perspective_rays(A_W, A_H, fov=params["fov"],
+                            origin=params["camera_position"],
+                            sample_xy=jitter)
+    o = o.contiguous()
+    R = o.shape[0]
+    u = torch.rand((BOUNCES, R, 2), device=dev, generator=gen)
+    f = torch.rand((BOUNCES, R), device=dev, generator=gen)
+    tkw = dict(max_bounces=BOUNCES, mirror_threshold=G_THRESHOLD,
+               background=BG, uniforms=u, fb_uniforms=f, fb_prob=G_FB_PROB,
+               guide_fn=guide)
+
+    def trace(impl, **kw):
+        rgb, st = trace_path(scene, o, d, impl=impl, **dict(tkw, **kw))
+        torch.cuda.synchronize()
+        return rgb, st.as_dict()
+
+    out = {"stepwise": trace("stepwise")}
+    kernel_hit = cuda_intersect.nearest_hit
+    cuda_intersect.nearest_hit = cuda_intersect.nearest_hit_plain
+    try:
+        out["stepwise_plain_sweep"] = trace("stepwise")
+    finally:
+        cuda_intersect.nearest_hit = kernel_hit
+    out["hybrid"] = trace("hybrid")
+    out[gml] = trace("stepwise", guide_max_level=A_GML)
+    f3 = f.clone()
+    f3[A_GML:] = 2.0
+    out[f"hybrid_fb_plane_past_level_{A_GML}"] = trace("hybrid",
+                                                       fb_uniforms=f3)
+
+    def same(a, b):
+        return bool(torch.equal(out[a][0], out[b][0])) and out[a][1] == \
+            out[b][1]
+
+    agree = {
+        "stepwise_kernel_vs_plain_sweep": same("stepwise",
+                                               "stepwise_plain_sweep"),
+        "stepwise_vs_hybrid": same("stepwise", "hybrid"),
+        f"{gml}_vs_hybrid_fb_plane_past_level_{A_GML}": same(
+            gml, f"hybrid_fb_plane_past_level_{A_GML}"),
+        "render_path_stepwise_vs_hybrid": bool(torch.equal(
+            frames["stepwise"][0], frames["hybrid"][0]))
+        and frames["stepwise"][1] == frames["hybrid"][1]}
+    fb_full, fb_gml = out["stepwise"][1]["fb_used"], out[gml][1]["fb_used"]
+    emit({"phase": "fb_agent", "frame": f"{A_W}x{A_H}@{SPP}spp/{BOUNCES}",
+          "agent": f"FBConfig() z {cfg.z_dim}, encoder {cfg.e_hidden_dim}, "
+                   f"backward {cfg.b_hidden_dim}, seeded (seed {SEED})",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision(),
+          "launches": launches, "bit_equal": agree,
+          "max_abs_err_stepwise_vs_hybrid": float(
+              (out["stepwise"][0] - out["hybrid"][0]).abs().max()),
+          "stats": {k: v[1] for k, v in out.items()},
+          "render_path_stats": {k: v[1] for k, v in frames.items()},
+          "seconds": time.perf_counter() - t0})
+    check(all(agree.values()), f"fb_agent: routes differ: {agree}")
+    check(0 < fb_gml < fb_full, f"fb_agent: guide_max_level={A_GML} "
+          f"guided {fb_gml} bounces, every level {fb_full}")
+
+    # fb_agent_times: each route's frame on the host clock, the guide in
+    # CUDA events around its calls, the route's kernels a frame (their
+    # launches recorded in one frame and replayed: device time from the
+    # profiler, and the wrapper calls in CUDA events), peak memory.
+    t0 = time.perf_counter()
+    row_flops = agent_guide_flops(cfg)
+    times = {}
+    for name, rkw in routes.items():
+        frame(rkw)
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            frame(rkw)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        timed = TimedGuide(guide)
+        frame(rkw, timed)
+        guide_ms, guide_calls = timed.ms(), len(timed.events)
+        hybrid = rkw["impl"] == "hybrid"
+        mod, attr, plain = ((cuda_level, "path_level",
+                             cuda_level.path_level_plain) if hybrid else
+                            (cuda_intersect, "nearest_hit",
+                             cuda_intersect.nearest_hit_plain))
+        calls = recorded_launches(mod, attr, lambda: frame(rkw))
+        real = getattr(mod, attr)
+
+        def replay(fn=real):
+            for args, kw, _ in calls:
+                fn(*args, **kw)
+
+        replay()
+        k_ms = cuda_ms(replay, 5)
+        k_dev_ms, k_dev_launches = device_ms(replay, attr + "_kernel")
+        k_plain_ms = cuda_ms(lambda: replay(plain), 1)
+        if hybrid:
+            work, k_bytes = {}, 0
+            for (lo, ld, lrun, lu, ltable), kw, lv in calls:
+                add_work(work, level_edges.level_work(lo, ld, lrun, lu,
+                                                      ltable))
+                diffuse = int((((lv.state & cuda_level.ST_CONT) != 0)
+                               & ((lv.state & cuda_level.ST_MIRROR) == 0))
+                              .sum())
+                k_bytes += ((LVL_BYTES_PER_RAY + (LVL_BYTES_HIT if
+                                                  kw.get("want_hit") else 0))
+                            * lo.shape[0] + LVL_BYTES_U * diffuse)
+            k_ops = level_ops(work)[0]
+        else:
+            work, k_bytes = {}, 0
+            for (lo, ld, sup, stable), kw, _ in calls:
+                add_work(work, cuda_intersect.sweep_work(
+                    lo, ld, sup, stable, fast=kw.get("fast", False)))
+                k_bytes += (W_BYTES_IN + NH_BYTES_OUT) * lo.shape[0]
+            k_ops = sweep_ops(work)[0]
+        k_bound, k_by = bound(k_ops, k_bytes)
+        g_levels = A_GML if "guide_max_level" in rkw else BOUNCES
+        g_flops = g_levels * R * row_flops
+        g_bound = g_flops / PEAK_F32_FLOPS * 1e3
+        wall = sorted(walls)[1]
+        times[name] = {
+            "frame_wall_ms": walls, "frame_wall_ms_median": wall,
+            "guide_ms": guide_ms, "guide_calls": guide_calls,
+            "guide_share_of_wall": guide_ms / wall,
+            "guide_flops": g_flops, "guide_bound_ms": g_bound,
+            "guide_bound_share": g_bound / guide_ms,
+            "kernel": attr, "kernel_launches": len(calls),
+            "kernel_device_ms_per_frame": k_dev_ms,
+            "kernel_device_ms_per_launch": k_dev_ms / max(k_dev_launches,
+                                                          1),
+            "kernel_profiled_launches": k_dev_launches,
+            "kernel_wrapper_ms_per_frame": k_ms,
+            "kernel_plain_ms_per_frame": k_plain_ms,
+            "kernel_bound_ms_per_frame": k_bound,
+            "kernel_bound_by": k_by, "kernel_bound_ops": k_ops,
+            "kernel_bound_bytes": k_bytes,
+            "kernel_bound_share": k_bound / max(k_dev_ms, 1e-9),
+            "kernel_work": work,
+            "max_memory_allocated_bytes": peak}
+    emit({"phase": "fb_agent_times", **card,
+          "frame": f"{A_W}x{A_H}@{SPP}spp/{BOUNCES}", "rays": R,
+          "guide_flops_per_row": row_flops,
+          "guide_bound_rate_flops": PEAK_F32_FLOPS, "routes": times,
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes either kernel's "
+                          "function",
+          "seconds": time.perf_counter() - t0})
+
+    # fb_agent_800x600: the stepwise route once at 800x600@8spp/8 with
+    # guide_max_level=3: its time, its guide's and its peak memory, or the
+    # out-of-memory error.
+    t0 = time.perf_counter()
+    big = {"frame": f"{A_BIG_W}x{A_BIG_H}@{SPP}spp/{BOUNCES}",
+           "guide_max_level": A_GML}
+    del out, frames, calls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timed = TimedGuide(guide)
+    try:
+        t1 = time.perf_counter()
+        img, st = frame(routes[gml], timed, width=A_BIG_W, height=A_BIG_H)
+        big["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        big["guide_ms"] = timed.ms()
+        big["guide_bound_ms"] = (A_GML * A_BIG_W * A_BIG_H * SPP * row_flops
+                                 / PEAK_F32_FLOPS * 1e3)
+        big["guide_bound_share"] = big["guide_bound_ms"] / big["guide_ms"]
+        big["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+        big["stats"] = st.as_dict()
+        big["fits"] = True
+        check(bool(torch.isfinite(img).all()) and st.as_dict()["fb_used"] > 0,
+              f"fb_agent_800x600: {st.as_dict()}")
+    except torch.cuda.OutOfMemoryError as e:
+        big.update(fits=False, error=str(e)[:600],
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                       dev))
+    img = st = timed = None
+    torch.cuda.empty_cache()
+    emit({"phase": "fb_agent_800x600", **card, **big,
+          "seconds": time.perf_counter() - t0})
+
+
 def level_edges_phase(dev):
     """Phase level_edges: on seeded scenes built to cross the shared level's
     rewrites (radii with T(r) != fl(r*r) and rays grazing them, lights whose
@@ -1258,6 +1590,7 @@ def main():
 
     whitted_kernels = whitted_phases(dev, card)
     guided_kernels = guided_phases(dev, card, scene, params, libs)
+    fb_agent_phases(dev, card, scene, params)
 
     emit({"kernels": [{
         "name": "path_trace", "route": "cuda",

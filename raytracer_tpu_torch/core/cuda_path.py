@@ -35,8 +35,9 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from . import native, vec
-from .intersect import inside_threshold, nearest_hit_c
+from . import cuda_intersect, native, vec
+from .cuda_intersect import SphereTable
+from .intersect import NearestHitC, inside_threshold, nearest_hit_c
 from ..trace.path import _direct_lighting_c, is_student, observation_c
 from ..trace.sampling import fb_action_to_direction_c, local_to_world_c
 
@@ -413,6 +414,46 @@ def level_plain(o: torch.Tensor, d: torch.Tensor, running: torch.Tensor,
         (em_flags, True), (sm_flags, True), (mr_flags, True)] + [
         ([float(row[c]) for row in rows], False) for c in range(7, 12)]
     h = nearest_hit_c(ox, oy, oz, dx, dy, dz, rows, extra_vals, fast=fast)
+    return _finish_level(o, d, running, u, table, h, fast, want_hit)
+
+
+def level_stepwise(o: torch.Tensor, d: torch.Tensor, running: torch.Tensor,
+                   u: Optional[torch.Tensor], table: PathTable, *,
+                   sweep: SphereTable, fast: bool = False,
+                   want_hit: bool = False) -> Level:
+    """One bounce level of JAX ``_level_kernel`` with ``use_pallas=True``
+    (``raytracer_tpu/trace/path.py:692-775``): the sweep is one
+    ``cuda_intersect.nearest_hit`` call on ``sweep`` (``|t|``, nothing
+    suppressed: the kernel on CUDA tensors, ``nearest_hit_plain`` on the
+    CPU), the hit point ``o + d·t`` and the normal from the hit sphere's
+    centre; the hit sphere's columns are gathered from ``table``, and the
+    rest is ``level_plain``'s tensor ops.  Equal to ``level_plain`` bit for
+    bit: the kernel returns the plain sweep's ``t``, index and found flag,
+    and every column taken from the gather is masked by found or
+    continuing, where it is the sweep's selection."""
+    t, idx, found = cuda_intersect.nearest_hit(o, d, None, sweep,
+                                               by_abs=True, fast=fast)
+    i = idx.long()
+    rows = table.spheres[i]                       # [R, 12] hit-sphere rows
+    flags = table.flags[i]
+    px, py, pz = (o[:, c] + d[:, c] * t for c in range(3))
+    nx, ny, nz = vec.normalise_safe_c(px - rows[:, 0], py - rows[:, 1],
+                                      pz - rows[:, 2])
+    extras = ([rows[:, c] for c in range(4, 7)]
+              + [(flags & f) != 0 for f in (FLAG_EMISSIVE, FLAG_SMALL,
+                                            FLAG_MIRROR)]
+              + [rows[:, c] for c in range(7, 12)])
+    h = NearestHitC(found, idx, t, px, py, pz, nx, ny, nz, extras)
+    return _finish_level(o, d, running, u, table, h, fast, want_hit)
+
+
+def _finish_level(o, d, running, u, table: PathTable, h: NearestHitC,
+                  fast: bool, want_hit: bool) -> Level:
+    """The level after its sweep: ``h`` carries the hit and, in
+    ``extras``, the hit sphere's albedo, emissive / small-light / mirror
+    flags and material columns (refl, transp, emit, ior, id)."""
+    ox, oy, oz, dx, dy, dz = o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], \
+        d[:, 2]
     px, py, pz, nx, ny, nz = h.px, h.py, h.pz, h.nx, h.ny, h.nz
     ar, ag, ab, em, sm, mr = h.extras[:6]
     found = running & h.found
@@ -420,8 +461,8 @@ def level_plain(o: torch.Tensor, d: torch.Tensor, running: torch.Tensor,
     mirror = found & ~emis & mr
     cont = mirror | (found & ~emis & ~mirror)
 
-    dr, dg, db = _direct_lighting_c(rows, table.emissive_idx, px, py, pz,
-                                    nx, ny, nz, h.idx, fast)
+    dr, dg, db = _direct_lighting_c(table.spec, table.emissive_idx, px, py,
+                                    pz, nx, ny, nz, h.idx, fast)
     rlx, rly, rlz = vec.reflect_c(dx, dy, dz, nx, ny, nz)
     if u is None:
         dfx, dfy, dfz = rlx, rly, rlz
@@ -474,13 +515,17 @@ def trace_levels(level_fn, origins: torch.Tensor, dirs: torch.Tensor,
                  max_bounces: int, background: Sequence[float],
                  fast: bool = False, guide=None,
                  fb_uniforms: Optional[torch.Tensor] = None,
-                 fb_prob: float = 1.0):
-    """The tracer as a loop of ``level_fn`` calls (``level_plain``, or the
-    level kernel's wrapper for the hybrid), with the guide between levels
-    and the reverse fold: the lean tracer's semantics.  ``guide`` may be
-    any ``obs [R, 22] -> action [R, 2]`` callable; it runs on every lane's
-    observation (the same product for every caller) and is taken where the
-    lane is diffuse and its fb uniform is below ``fb_prob``.  No host
+                 fb_prob: float = 1.0,
+                 guide_max_level: Optional[int] = None):
+    """The tracer as a loop of ``level_fn`` calls (``level_plain``, the
+    level kernel's wrapper for the hybrid, ``level_stepwise`` for the
+    stepwise tracer), with the guide between levels and the reverse fold:
+    the lean tracer's semantics.  ``guide`` may be any ``obs [R, 22] ->
+    action [R, 2]`` callable; it runs on every lane's observation (the same
+    product for every caller) and is taken where the lane is diffuse and
+    its fb uniform is below ``fb_prob``.  ``guide_max_level=K``: levels
+    ``>= K`` run no guide and bounce by cosine sampling on the same
+    uniforms; ``fb_used`` counts the guided levels only.  No host
     synchronisation between levels.  Returns ``(rgb [R, 3], counts [R, 4
     or 6])``."""
     R, dev = origins.shape[0], origins.device
@@ -494,13 +539,16 @@ def trace_levels(level_fn, origins: torch.Tensor, dirs: torch.Tensor,
     term_emis = torch.zeros(R, dtype=torch.bool, device=dev)
     levels = []
     for lvl in range(max_bounces):
+        guided_level = guided and (guide_max_level is None
+                                   or lvl < guide_max_level)
         lv = level_fn(o, d, running, None if uniforms is None
-                      else uniforms[lvl], table, fast=fast, want_hit=guided)
+                      else uniforms[lvl], table, fast=fast,
+                      want_hit=guided_level)
         st = lv.state
         emis = (st & ST_EMISSIVE) != 0
         cont = (st & ST_CONT) != 0
         d_next = lv.d_next
-        if guided:
+        if guided_level:
             use_fb = (cont & ((st & ST_MIRROR) == 0)
                       & (fb_uniforms[lvl] < fb_prob))
             h = lv.hit

@@ -50,16 +50,24 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
                 fb_uniforms: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 guide_fn=None, fb_prob: float = 1.0, impl: str = "kernel",
+                guide_max_level: Optional[int] = None,
                 precision: str = "exact", device=None):
     """Render a ``[H, W, 3]`` unit-range image and its ``PathStats``.
 
     Runs on ``device`` (``cuda`` by default; the scene moves there).
     ``impl``: "kernel" (the CUDA path kernel, with a student guide inside
     it; its plain version for a CPU device), "hybrid" (one level kernel a
-    bounce, the guide between levels) or "plain" (the plain PyTorch version
-    anywhere).  ``guide_fn``: a distilled student
-    (``fb.registry.guide_for``), taken on diffuse bounces with probability
-    ``fb_prob``."""
+    bounce, the guide between levels), "stepwise" (one nearest-hit kernel
+    a bounce, the guide between levels) or "plain" (the plain PyTorch
+    version anywhere).  ``guide_fn``: a distilled student
+    (``fb.registry.guide_for``) or, except for "kernel", any guide such as
+    the full agent's (``TrainedFBAgent.as_guide_fn``), taken on diffuse
+    bounces with probability ``fb_prob``; ``guide_max_level`` (stepwise
+    only): the guide on the first that many levels only."""
+    if guide_max_level is not None and impl not in ("stepwise",
+                                                    "stepwise-pallas"):
+        raise ValueError("guide_max_level requires impl='stepwise' "
+                         "(see trace_path)")
     dev = resolve_device(device)
     scene = scene.to(dev)
     if jitter is None:
@@ -78,6 +86,7 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
                             background=background, uniforms=uniforms,
                             fb_uniforms=fb_uniforms, generator=generator,
                             guide_fn=guide_fn, fb_prob=fb_prob, impl=impl,
+                            guide_max_level=guide_max_level,
                             precision=precision)
     img = _assemble(rgb, spp=spp, height=height, width=width)
     return img, stats

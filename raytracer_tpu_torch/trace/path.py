@@ -21,10 +21,16 @@ gives the background; an emissive hit gives the sphere's colour; otherwise
 with the student inside it when guided, on a card; its plain version for
 CPU tensors); ``impl="hybrid"`` runs one ``core/cuda_level.py::path_level``
 launch a level with the guide between levels as PyTorch matmuls and the
-fold on tensors (JAX ``_trace_path_hybrid_impl``); ``impl="plain"`` runs
-the plain PyTorch version wherever the tensors are.  The kernel and hybrid
-impls take a distilled student (``fb/distill.py::StudentGuide``); the
-plain one takes any ``obs [R, 22] -> action [R, 2]`` callable.
+fold on tensors (JAX ``_trace_path_hybrid_impl``); ``impl="stepwise"``
+(also ``"stepwise-pallas"``: the same route here) runs one
+``core/cuda_intersect.py::nearest_hit`` launch a level for the sweep and
+the rest of the level as tensor ops, the guide between levels (JAX
+``_trace_path_stepwise`` with ``use_pallas=True``), and alone takes
+``guide_max_level``; ``impl="plain"`` runs the plain PyTorch version
+wherever the tensors are.  The kernel impl takes a distilled student
+(``fb/distill.py::StudentGuide``); the others take any ``obs [R, 22] ->
+action [R, 2]`` callable, the full agent's
+(``fb/inference.py::TrainedFBAgent.as_guide_fn``) among them.
 
 Randomness comes in as planes, in the JAX schedule: ``uniforms[L, R, 2]``
 and, when guided, ``fb_uniforms[L, R]``: level ``l``'s ``k_diff, k_fb =
@@ -36,6 +42,7 @@ possible.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -192,26 +199,34 @@ def trace_path(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor, *,
                fb_uniforms: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                guide_fn=None, fb_prob: float = 1.0, impl: str = "kernel",
+               guide_max_level: Optional[int] = None,
                precision: str = "exact"):
     """Trace ``[R]`` rays to integer-valued sample colours ``[R, 3]``.
 
     ``origins``/``dirs`` ``[R, 3]`` on the scene's device (dirs need not be
     normalised).  Returns ``(rgb, PathStats)``.  ``guide_fn``: a guide
     ``obs [R, 22] -> action [R, 2]``, taken on a diffuse bounce where the
-    level's fb uniform is below ``fb_prob``.  ``precision="fast"``: the
-    squared-radius hit test and rsqrt direct lighting (rare 1-ulp integer
-    flips at the trunc sites; the goldens stay on "exact")."""
+    level's fb uniform is below ``fb_prob``.  ``guide_max_level=K``
+    (stepwise only, the full agent's deployment knob): the guide runs on
+    the first ``K`` levels, deeper diffuse bounces sample the cosine lobe
+    on the same draws.  ``precision="fast"``: the squared-radius hit test
+    and rsqrt direct lighting (rare 1-ulp integer flips at the trunc
+    sites; the goldens stay on "exact")."""
     if max_bounces < 1:
         raise ValueError(f"max_bounces must be >= 1, got {max_bounces}")
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision {precision!r}")
-    if impl not in ("kernel", "plain", "hybrid"):
+    if impl not in ("kernel", "plain", "hybrid", "stepwise",
+                    "stepwise-pallas"):
         raise ValueError(f"unknown impl {impl!r}")
-    if guide_fn is not None and impl != "plain" and not is_student(guide_fn):
+    stepwise = impl in ("stepwise", "stepwise-pallas")
+    if guide_max_level is not None and not stepwise:
+        raise ValueError("guide_max_level requires impl='stepwise'")
+    if guide_fn is not None and impl == "kernel" and not is_student(guide_fn):
         raise ValueError(
-            f"impl={impl!r} takes distilled-student guides only "
-            "(fb.distill.DistilledGuide.as_guide_fn); other guides use "
-            "impl='plain'")
+            "impl='kernel' takes distilled-student guides only "
+            "(fb.distill.DistilledGuide.as_guide_fn); full agents use "
+            "impl='stepwise', 'hybrid' or 'plain'")
     from ..core import cuda_path    # imports this module's helpers
     dev = scene.device
     origins = origins.to(dev, torch.float32).contiguous()
@@ -237,6 +252,15 @@ def trace_path(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor, *,
         from ..core import cuda_level
         rgb, counts = cuda_path.trace_levels(cuda_level.path_level, origins,
                                              dirs, uniforms, table, **kw)
+    elif stepwise:
+        # JAX _trace_path_stepwise: one nearest-hit sweep a level, the rest
+        # of the level, the guide and the fb gate as tensor ops.
+        from ..core.cuda_intersect import sphere_table
+        level = functools.partial(cuda_path.level_stepwise,
+                                  sweep=sphere_table(scene))
+        rgb, counts = cuda_path.trace_levels(
+            level, origins, dirs, uniforms, table,
+            guide_max_level=guide_max_level, **kw)
     else:
         fn = (cuda_path.path_trace if impl == "kernel"
               else cuda_path.path_trace_plain)

@@ -4,8 +4,11 @@
 Runs the path tracer's frame (chandelier traditional, 800x600, 8 spp, 8
 bounces, mirror_threshold=0.0), the guided frame (the same at
 mirror_threshold=0.9, fb_prob=1.0, the shipped student; impl="kernel" and
-impl="hybrid") and the Whitted tracer's (planets2, 2001x2001, 10 bounces)
-and reports, for each:
+impl="hybrid"), the full FB agent's frame (200x100, 8 spp, 8 bounces,
+mirror_threshold=0.9, fb_prob=1.0, an agent at FBConfig()'s width with
+seeded weights; impl="stepwise", with guide_max_level=3, and
+impl="hybrid": the profiler window only) and the Whitted tracer's
+(planets2, 2001x2001, 10 bounces) and reports, for each:
 
 * a staged breakdown on the host clock, each stage ended by
   ``torch.cuda.synchronize()``: jitter draw, camera, scene-table set-up,
@@ -34,6 +37,8 @@ sys.path.insert(0, str(ROOT))
 from raytracer_tpu_torch.core import (  # noqa: E402
     cuda_intersect, cuda_path, cuda_whitted)
 from raytracer_tpu_torch.core.vec import div_scalar  # noqa: E402
+from raytracer_tpu_torch.fb.inference import (  # noqa: E402
+    TrainedFBAgent, small_light_indices)
 from raytracer_tpu_torch.fb.registry import (  # noqa: E402
     STUDENTS_DIR, guide_for)
 from raytracer_tpu_torch.render import path_renderer  # noqa: E402
@@ -236,6 +241,34 @@ def guided(dev, card, scene, p):
     return out
 
 
+def agent(dev, card, scene, p):
+    """The full FB agent's 200x100@8spp/8 frame on its three routes: the
+    profiler over two frames each (the guide's GEMMs and elementwise
+    kernels, the level's, the device's idle share)."""
+    guide = TrainedFBAgent(None, scene, small_light_indices(scene),
+                           p["camera_position"], seed=0,
+                           device=dev).as_guide_fn()
+    kw = dict(width=200, height=100, spp=SPP, max_bounces=BOUNCES,
+              fov=p["fov"], camera_position=p["camera_position"],
+              mirror_threshold=0.9, background=BG, device=dev,
+              guide_fn=guide, fb_prob=1.0)
+    out = []
+    for name, rkw in (("stepwise", dict(impl="stepwise")),
+                      ("stepwise_guide_max_level_3",
+                       dict(impl="stepwise", guide_max_level=3)),
+                      ("hybrid", dict(impl="hybrid"))):
+        def frame(rkw=rkw):
+            return path_renderer.render_path(
+                scene, generator=torch.Generator(dev).manual_seed(0), **rkw,
+                **kw)
+
+        frame()                          # build and warm up
+        out.append({"phase": f"fb_agent_profiler_{name}", **card,
+                    "frame": f"200x100@{SPP}spp/{BOUNCES}", "frames": 2,
+                    **profile(frame, frames=2)})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_torch_frame: no CUDA device", file=sys.stderr)
@@ -320,6 +353,7 @@ def main():
              "dir": dh[i].tolist()}
             for i in torch.nonzero(diff).ravel()[:5]]})
     results += guided(dev, card, scene, p)
+    results += agent(dev, card, scene, p)
     results += whitted(dev, card)
     for r in results:
         print(json.dumps(r), flush=True)

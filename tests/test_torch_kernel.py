@@ -15,6 +15,9 @@ import torch
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
+from raytracer_tpu_torch.fb.config import FBConfig
+from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
+                                              small_light_indices)
 from raytracer_tpu_torch.render.camera import grid_rays
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
@@ -600,3 +603,81 @@ def test_sweep_edges_match_plain_on_card():
                     co.shape, by_abs, fast)
     torch.cuda.synchronize()
     assert cuda_intersect.nearest_hit.launches == before + 4 * len(cases)
+
+
+def _agent_trace_inputs(R=3601, levels=6):
+    """The chandelier on the card, a narrow seeded FB agent (z 8, encoder
+    32, backward 16) and seeded rays and draws for a guided stepwise
+    trace."""
+    scene, _, _, p = chandelier_scene(device="cuda")
+    agent = TrainedFBAgent(None, scene, small_light_indices(scene),
+                           p["camera_position"],
+                           config=FBConfig(z_dim=8, e_hidden_dim=32,
+                                           f_hidden_dim=32, b_hidden_dim=16),
+                           seed=1, device="cuda")
+    o, d = _rays(R, seed=11, device="cuda")
+    g = torch.Generator("cuda").manual_seed(5)
+    kw = dict(max_bounces=levels, mirror_threshold=0.9,
+              uniforms=torch.rand((levels, R, 2), device="cuda",
+                                  generator=g),
+              fb_uniforms=torch.rand((levels, R), device="cuda",
+                                     generator=g),
+              fb_prob=0.8, guide_fn=agent.as_guide_fn())
+    return scene, o, d, kw
+
+
+@pytest.mark.cuda
+def test_stepwise_kernel_sweep_equals_plain_sweep_on_card(monkeypatch):
+    """On the card: trace_path(impl="stepwise") launches the nearest-hit
+    kernel once a level, and equals the same trace with
+    nearest_hit_plain as its sweep bit for bit, image and all six counts,
+    guided by a narrow seeded FB agent, at every guide level and with
+    guide_max_level=2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    scene, o, d, kw = _agent_trace_inputs()
+    for gml in (None, 2):
+        before = cuda_intersect.nearest_hit.launches
+        k_rgb, k_st = trace_path(scene, o, d, impl="stepwise",
+                                 guide_max_level=gml, **kw)
+        torch.cuda.synchronize()
+        assert cuda_intersect.nearest_hit.launches == before + 6
+        with monkeypatch.context() as m:
+            m.setattr(cuda_intersect, "nearest_hit",
+                      cuda_intersect.nearest_hit_plain)
+            p_rgb, p_st = trace_path(scene, o, d, impl="stepwise",
+                                     guide_max_level=gml, **kw)
+        torch.cuda.synchronize()
+        assert cuda_intersect.nearest_hit.launches == before + 6
+        assert torch.equal(k_rgb, p_rgb)
+        assert k_st.as_dict() == p_st.as_dict()
+        assert k_st.as_dict()["fb_used"] > 0
+
+
+@pytest.mark.cuda
+def test_stepwise_equals_hybrid_with_an_agent_on_card():
+    """On the card, with a narrow seeded FB agent: the stepwise trace (the
+    nearest-hit kernel a level) equals the hybrid (the level kernel a
+    level) bit for bit, and with guide_max_level=3 equals the hybrid whose
+    fb plane is 2.0 (never below fb_prob) from level 3 on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    scene, o, d, kw = _agent_trace_inputs()
+    s_rgb, s_st = trace_path(scene, o, d, impl="stepwise", **kw)
+    h_rgb, h_st = trace_path(scene, o, d, impl="hybrid", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(s_rgb, h_rgb)
+    assert s_st.as_dict() == h_st.as_dict()
+    f3 = kw["fb_uniforms"].clone()
+    f3[3:] = 2.0
+    s3, st3 = trace_path(scene, o, d, impl="stepwise", guide_max_level=3,
+                         **kw)
+    h3, sh3 = trace_path(scene, o, d, impl="hybrid",
+                         **dict(kw, fb_uniforms=f3))
+    torch.cuda.synchronize()
+    assert torch.equal(s3, h3) and st3.as_dict() == sh3.as_dict()
+    assert 0 < int(st3.fb_used) < int(s_st.fb_used)

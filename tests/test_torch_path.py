@@ -114,15 +114,21 @@ def test_fast_precision_exact_vs_lean():
 
 
 def test_guide_not_ported_yet():
-    """Guided tracing is ported (tests/test_torch_guided.py); the kernel
-    and hybrid impls take distilled students only, as the JAX Pallas impl
-    does (trace/path.py:273-280)."""
+    """Guided tracing is ported (tests/test_torch_guided.py). The kernel
+    impl takes distilled students only, as the JAX Pallas impl does
+    (trace/path.py:273-280); the hybrid and stepwise impls take any guide
+    callable, as JAX's do, the full agent's among them
+    (tests/test_torch_stepwise.py)."""
     js = jax_library.chandelier_scene()[0]
     o, d = _rays(4, seed=0)
-    for impl in ("kernel", "hybrid"):
-        with pytest.raises(ValueError, match="student"):
-            _port(js, o, d, max_bounces=2, impl=impl,
-                  guide_fn=lambda obs: obs)
+    with pytest.raises(ValueError, match="student"):
+        _port(js, o, d, max_bounces=2, impl="kernel",
+              guide_fn=lambda obs: obs)
+    for impl in ("hybrid", "stepwise"):
+        rgb, st = _port(js, o, d, max_bounces=2, impl=impl,
+                        guide_fn=lambda obs: obs,
+                        generator=torch.Generator().manual_seed(0))
+        assert np.isfinite(rgb).all() and st["total_rays"] >= 4
 
 
 def test_diffuse_needs_uniforms_or_generator():

@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``.  It builds the
-port's CUDA kernels with nvcc (all sources at once), then drives its three
+port's CUDA kernels with nvcc (all sources at once), then drives its
 paths, each with the kernels' launch counts set to 0 just before and read
 just after:
 
@@ -25,7 +25,14 @@ just after:
   nearest-hit kernel a level, the guide between levels; every level
   guided, and guide_max_level=3) and impl="hybrid" (the level kernel a
   level); phases fb_agent and fb_agent_times, then one 800x600@8spp/8
-  frame with guide_max_level=3 (fb_agent_800x600).
+  frame with guide_max_level=3 (fb_agent_800x600);
+* the FB learner (the JAX CLI's train-fb-chandelier): ChandelierOnlyTrainer
+  at its own config (full width), 12 scenes of 150 walkers and 12 more
+  with the guide in the walk (guide_prob=0.25), through run_training: each
+  scene's walk sweeps with the nearest-hit kernel, 8 launches, and the
+  render probe runs the hybrid's level kernel (phase fb_train); then the
+  agent it trained as an f32, bf16 and int8 guide through impl="hybrid" at
+  the full-agent cell's shape (phase fb_guide_dtypes).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -40,6 +47,7 @@ non-zero before it.  Without a CUDA
 device it exits 1 and prints no result.
 """
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -52,12 +60,17 @@ import torch
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted, native, vec)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
+from raytracer_tpu_torch.fb import quantize
+from raytracer_tpu_torch.fb import trajectory as fb_walk
+from raytracer_tpu_torch.fb.agent import FBResearchAgent, loss_terms
 from raytracer_tpu_torch.fb.config import FBConfig
 from raytracer_tpu_torch.fb.distill import DistilledGuide
 from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
                                               small_light_indices)
 from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
                                              model_path_for)
+from raytracer_tpu_torch.fb.trainer import ChandelierOnlyTrainer
+from raytracer_tpu_torch.utils.checkpoint import PARTS, load_fb
 from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
 from raytracer_tpu_torch.render.path_renderer import render_path
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
@@ -171,6 +184,35 @@ A_W, A_H = 200, 100
 A_GML = 3
 A_BIG_W, A_BIG_H = 800, 600
 PEAK_F32_FLOPS = 67e12
+# The FB learner (ChandelierOnlyTrainer at its own config, full width):
+# scenes without the guide in the walk, then with guide_prob 0.25, walkers
+# a scene (the JAX CLI's training steps a scene, raytracer_tpu/cli.py:246),
+# the held-out test's rays.  One update step (update_card_vs_cpu): the loss
+# terms card vs CPU within the CPU tests' 1e-5 (tests/test_torch_fb_learner
+# .py); each float32 gradient, leaf by leaf, within T_GRAD_TOL of its
+# leaf's largest of the float64 gradient taken through the same ReLU and
+# clamp branches, and each ReLU and clamp input within T_ACT_TOL of its
+# site's largest of float64's; the card's Adam step within one float32 ulp
+# of the parameter (plus 1e-6 lr) of the same step in float64 from the
+# card's gradient.  The int8 guide against its CPU twin: rows whose int8
+# activations are the same on both devices within float rounding
+# (INT8_SAME_LEVELS), the others within the CPU tests' INT8_MAX
+# (tests/test_torch_fb_quantize.py).  The bf16 and int8 guides against f32
+# on a frame's guided rows: JAX's own int8 bounds (tests/test_quantize.py:
+# 38-50, on 256 rows), but the int8 largest at 0.17: on this frame's rows
+# the int8 scheme itself passes 0.15, JAX's own int8 guide by 0.164 and
+# the port's by 0.165 (tests/int8_rows_vs_jax.py on the rows this phase
+# saves).  The int8 tensor-core peak (NVIDIA data sheet, dense).
+T_SCENES, T_GUIDED_SCENES, T_WALKERS = 12, 12, 150
+T_GUIDE_PROB = 0.25
+T_HELD_OUT = 200
+T_LOSS_TOL = T_GRAD_TOL = T_ACT_TOL = 1e-5
+T_STEP_ULPS, T_STEP_LR = 1.0, 1e-6
+INT8_MAX = 0.05
+INT8_SAME_LEVELS = 1e-5
+DTYPE_BOUNDS = {"bfloat16": dict(max=0.15, mean=0.03),
+                "int8": dict(max=0.17, mean=0.03)}
+PEAK_INT8 = 1979e12
 # level_edges: seeded scenes on the edges of the level's exact rewrites
 # (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
 EDGE_SEEDS = (SEED + 20, SEED + 21, SEED + 22)
@@ -1031,21 +1073,32 @@ class TimedGuide:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def device_ms(fn, kernel):
-    """``(device ms, launches)`` of the CUDA kernels whose name holds
-    ``kernel`` in one call of ``fn``, from ``torch.profiler``'s kernel
-    events: at small shapes the wrapper's host time exceeds the kernel's,
-    so events around a run of launches time the host."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+def queued_ms(fn, reps=10, spin_cycles=20_000_000):
+    """Device milliseconds of one call of ``fn`` on the card's clock: CUDA
+    events around ``reps`` calls whose launches the host queued behind a
+    spin kernel (``torch.cuda._sleep``), so the events bracket the kernels
+    run back to back and not the host's launch overhead.  The spin doubles
+    until it outlasts the host's queueing.  Used for the recorded launches
+    of a frame or a walk, a few microseconds each, where events around the
+    wrapper calls time the host."""
+    fn()
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    return sum(us) / 1e3, len(us)
+        ev[0].record()
+        torch.cuda._sleep(spin_cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / reps
+        spin_cycles *= 2
+    raise PhaseError(f"queued_ms: the host took {host_ms:.3f} ms to queue "
+                     f"{reps} calls, longer than the spin")
 
 
 def recorded_launches(module, name, frame):
@@ -1193,8 +1246,8 @@ def fb_agent_phases(dev, card, scene, params):
 
     # fb_agent_times: each route's frame on the host clock, the guide in
     # CUDA events around its calls, the route's kernels a frame (their
-    # launches recorded in one frame and replayed: device time from the
-    # profiler, and the wrapper calls in CUDA events), peak memory.
+    # launches recorded in one frame and replayed: device time queued behind
+    # a spin kernel, and the wrapper calls in CUDA events), peak memory.
     t0 = time.perf_counter()
     row_flops = agent_guide_flops(cfg)
     times = {}
@@ -1224,7 +1277,7 @@ def fb_agent_phases(dev, card, scene, params):
 
         replay()
         k_ms = cuda_ms(replay, 5)
-        k_dev_ms, k_dev_launches = device_ms(replay, attr + "_kernel")
+        k_dev_ms = queued_ms(replay)
         k_plain_ms = cuda_ms(lambda: replay(plain), 1)
         if hybrid:
             work, k_bytes = {}, 0
@@ -1258,9 +1311,7 @@ def fb_agent_phases(dev, card, scene, params):
             "guide_bound_share": g_bound / guide_ms,
             "kernel": attr, "kernel_launches": len(calls),
             "kernel_device_ms_per_frame": k_dev_ms,
-            "kernel_device_ms_per_launch": k_dev_ms / max(k_dev_launches,
-                                                          1),
-            "kernel_profiled_launches": k_dev_launches,
+            "kernel_device_ms_per_launch": k_dev_ms / len(calls),
             "kernel_wrapper_ms_per_frame": k_ms,
             "kernel_plain_ms_per_frame": k_plain_ms,
             "kernel_bound_ms_per_frame": k_bound,
@@ -1310,6 +1361,512 @@ def fb_agent_phases(dev, card, scene, params):
     torch.cuda.empty_cache()
     emit({"phase": "fb_agent_800x600", **card, **big,
           "seconds": time.perf_counter() - t0})
+
+
+def nan_equal(a, b):
+    """Bit-level equality of two tensors, NaN equal to NaN (a walker that
+    finds nothing has a point at float32 max along its ray)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def walk_sweep(scene, draws, guide=None):
+    """One walk of the chandelier trainer's shape with its nearest-hit
+    calls recorded: ``(batch, calls)``."""
+    kw = dict(max_steps=BOUNCES, start_bias=ChandelierOnlyTrainer.START_BIAS,
+              wall_frac=ChandelierOnlyTrainer.WALL_FRAC)
+    if guide is not None:
+        kw.update(guide=guide, guide_prob=T_GUIDE_PROB, guide_noise=0.1)
+    out = []
+    calls = recorded_launches(cuda_intersect, "nearest_hit", lambda: out.append(
+        fb_walk.generate_trajectories(scene, draws, **kw)))
+    return out[0], calls
+
+
+class BranchTape:
+    """The branches of the ReLUs and clamps (``torch.relu_``, ``clamp``,
+    ``clamp_min``) one forward took: each site's input and the mask where
+    its derivative is one.  Given another run's masks it takes those
+    instead: the values stay this run's and the derivative is the other's,
+    so a float64 gradient can follow the branches a float32 run took."""
+
+    KINKS = {"relu_": lambda x: x > 0,
+             "clamp": lambda x, lo, hi: (x >= lo) & (x <= hi),
+             "clamp_min": lambda x, lo: x >= lo}
+
+    def __init__(self, replay=None):
+        self.replay, self.sites = replay, []
+
+    def __enter__(self):
+        self.real = {n: getattr(torch, n) for n in self.KINKS}
+        for n, f in self.real.items():
+            setattr(torch, n, self._tap(n, f))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.real.items():
+            setattr(torch, n, f)
+
+    def _tap(self, name, real):
+        def tapped(x, *bounds):
+            i = len(self.sites)
+            self.sites.append((name, x.detach().to("cpu", torch.float64,
+                                                   copy=True),
+                               self.KINKS[name](x, *bounds).cpu()))
+            if self.replay is None:
+                return real(x, *bounds)
+            mask = self.replay[i][2].to(x.device, x.dtype)
+            return real(x.detach().clone(), *bounds) + (x - x.detach()) * mask
+        return tapped
+
+
+def leaf_grads(agent):
+    return {f"{part}.{n}": p.grad.detach().to("cpu", torch.float64)
+            for part in ("encoder", "forward", "backward")
+            for n, p in agent.nets[part].named_parameters()
+            if p.grad is not None}
+
+
+def worst_leaf(got, want):
+    """``(leaf, value)``: the largest of max|got - want| over max|want|."""
+    return max(((k, float((got[k] - w).abs().max())
+                 / max(float(w.abs().max()), 1e-30)) for k, w in want.items()),
+               key=lambda kv: kv[1])
+
+
+def update_card_vs_cpu(dev, cfg, ckpt, batch):
+    """One update step from the checkpoint ``ckpt`` (fresh Adam state) on
+    ``batch`` on the card and on the CPU, each float32 gradient against the
+    float64 gradient on the CPU through the same ReLU and clamp branches,
+    and the card's Adam step against the same step in float64 from the
+    card's gradient: ``(report, failures, the card's agent)``.  The report
+    also holds each device's gradient against float64's own branches and
+    the branches that differ (a float32 input on the other side of a kink
+    from float64's)."""
+    cpu = torch.device("cpu")
+    b64 = tuple(torch.from_numpy(np.asarray(b, np.float64)) for b in batch)
+
+    def f64_grads(replay=None):
+        a = FBResearchAgent(cfg, seed=SEED, device=cpu)
+        a.load(ckpt)
+        for net in a.nets.values():
+            net.double()
+        with BranchTape(replay) as tape:
+            total, _ = loss_terms(*a.nets.values(), b64, cfg)
+        total.backward()
+        return leaf_grads(a), tape.sites
+
+    g64, sites64 = f64_grads()
+    upd, failures, runs = {}, [], {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        a = FBResearchAgent(cfg, seed=SEED, device=d)
+        a.load(ckpt)
+        p0 = [p.detach().clone() for p in a.optimizer.param_groups[0][
+            "params"]]
+        with BranchTape() as tape:
+            _, terms = a.update(batch)
+        runs[name] = (a, p0, terms)
+        check([s[0] for s in tape.sites] == [s[0] for s in sites64],
+              f"update {name}: branch sites differ from float64's")
+        g = leaf_grads(a)
+        g_same, _ = f64_grads(tape.sites)
+        flips, flip_x, act_err = {}, 0.0, 0.0
+        for (fn, x, m), (_, x64, m64) in zip(tape.sites, sites64):
+            scale = max(float(x64.abs().max()), 1e-30)
+            act_err = max(act_err, float((x - x64).abs().max()) / scale)
+            off = m != m64
+            if off.any():
+                flips[fn] = flips.get(fn, 0) + int(off.sum())
+                flip_x = max(flip_x, float(x64[off].abs().max()) / scale)
+        upd[name] = {"grad_vs_f64_same_branches": worst_leaf(g, g_same),
+                     "grad_vs_f64": worst_leaf(g, g64),
+                     "branches_differ": flips,
+                     "branches_differ_largest_f64_input": flip_x,
+                     "kink_inputs_vs_f64": act_err}
+        if upd[name]["grad_vs_f64_same_branches"][1] > T_GRAD_TOL:
+            failures.append(f"{name} gradient vs float64")
+        if act_err > T_ACT_TOL:
+            failures.append(f"{name} ReLU/clamp inputs vs float64")
+    (card, p0, terms_c), (cpu_agent, _, terms_h) = runs["card"], runs["cpu"]
+    upd["loss_terms_rel_err"] = max(
+        abs(terms_c[k] - terms_h[k]) / max(abs(terms_h[k]), 1e-3)
+        for k in terms_h)
+    if upd["loss_terms_rel_err"] > T_LOSS_TOL:
+        failures.append("loss terms card vs CPU")
+    # The card's Adam step, and the same step in float64 from its gradient.
+    got = [p.detach().to("cpu", torch.float64)
+           for p in card.optimizer.param_groups[0]["params"]]
+    ref = [p.detach().to("cpu", torch.float64).requires_grad_(True)
+           for p in p0]
+    for r, p in zip(ref, card.optimizer.param_groups[0]["params"]):
+        if p.grad is not None:           # the attention's query and key
+            r.grad = p.grad.detach().to("cpu", torch.float64)
+    torch.optim.Adam(ref, lr=cfg.learning_rate, betas=(0.9, 0.999),
+                     eps=1e-8).step()
+    eps32 = torch.finfo(torch.float32).eps
+    step_err = max(float(((g - r.detach()).abs()
+                          / (eps32 * r.detach().abs()
+                             + T_STEP_LR * cfg.learning_rate)).max())
+                   for g, r in zip(got, ref))
+    upd["adam_step_vs_f64_in_ulps"] = step_err
+    if step_err > T_STEP_ULPS:
+        failures.append("card Adam step vs float64")
+    upd["params_over_1e-5_card_vs_cpu"] = sum(
+        int(((p.detach().cpu() - q.detach()).abs() > 1e-5).sum())
+        for p, q in zip(card.optimizer.param_groups[0]["params"],
+                        cpu_agent.optimizer.param_groups[0]["params"]))
+    return upd, failures, card
+
+
+def fb_train_phase(dev, card, out_dir):
+    """Phase fb_train: the FB learner's main path, ChandelierOnlyTrainer at
+    its own config on the card (the walk's sweep the nearest-hit kernel,
+    8 launches a scene; the render probe through the hybrid's level
+    kernel), then its checks and times.  Returns ``(trainer, checkpoint,
+    kernels entry)``."""
+    t0 = time.perf_counter()
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "torch.backends.cuda.matmul.allow_tf32 is on: TF32 matmuls")
+    tr = ChandelierOnlyTrainer(num_training_scenes=T_SCENES + T_GUIDED_SCENES,
+                               seed=SEED, device=dev, output_dir=out_dir)
+    cfg = tr.config
+    tr.agent.save(out_dir / "initial.npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t1 = time.perf_counter()
+    tr.run_training(num_scenes=T_SCENES, scenes_per_batch=T_SCENES,
+                    training_steps_per_scene=T_WALKERS)
+    tr.guide_prob = T_GUIDE_PROB
+    tr.probe_every = T_GUIDED_SCENES
+    report = tr.run_training(num_scenes=T_GUIDED_SCENES,
+                             scenes_per_batch=T_GUIDED_SCENES,
+                             training_steps_per_scene=T_WALKERS,
+                             scene_offset=T_SCENES)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches = {"nearest_hit": cuda_intersect.nearest_hit.launches,
+                "path_level": cuda_level.path_level.launches,
+                "path_trace": cuda_path.path_trace.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    scenes = T_SCENES + T_GUIDED_SCENES
+    agent = tr.agent
+    check(launches["nearest_hit"] == BOUNCES * scenes,
+          f"fb_train: {launches['nearest_hit']} nearest_hit launches, not "
+          f"{BOUNCES} a scene")
+    check(launches["path_level"] > 0, f"fb_train: the render probe launched "
+          f"no level kernel ({launches})")
+    check(agent.updates > 0 and np.isfinite(agent.losses).all(),
+          f"fb_train: {agent.updates} updates, losses finite "
+          f"{bool(np.isfinite(agent.losses).all())}")
+    check(agent.light_memory, "fb_train: no light reached, no prototype")
+    ckpt = out_dir / "fb_multi_scene_final.npz"
+
+    # The walk: kernel sweep against nearest_hit_plain on the same draws,
+    # unguided and with the trained agent in the loop.
+    scene = tr.make_scene(scenes)[0]
+    guide = agent.guide()
+    equal, walk_err = {}, 0.0
+    for name, g in (("unguided", None), ("guided", guide)):
+        draws = fb_walk.draw_walk(
+            T_WALKERS, scene.num_spheres, BOUNCES,
+            start_bias=tr.START_BIAS, guided=g is not None,
+            generator=torch.Generator(dev).manual_seed(SEED + 50), device=dev)
+        got, calls = walk_sweep(scene, draws, g)
+        kernel_hit = cuda_intersect.nearest_hit
+        cuda_intersect.nearest_hit = cuda_intersect.nearest_hit_plain
+        try:
+            want, _ = walk_sweep(scene, draws, g)
+        finally:
+            cuda_intersect.nearest_hit = kernel_hit
+        equal[name] = all(nan_equal(a, b) for a, b in zip(got, want))
+        for args, kw, (t, _, found) in calls:
+            tp, _, fp = cuda_intersect.nearest_hit_plain(*args, **kw)
+            both = found & fp
+            walk_err = max(walk_err, float((t - tp).abs().where(both, 0.0)
+                                           .max()))
+    check(all(equal.values()), f"fb_train: walk with the kernel sweep != "
+          f"with nearest_hit_plain: {equal}")
+
+    # One update step on the card and on the CPU, from the same parameters
+    # with a fresh Adam state, on one batch of the trained agent's buffer,
+    # from the initial parameters (as the CPU tests start) and from the
+    # trained ones: each gradient against float64's through the same
+    # branches, the card's Adam step against float64's (update_card_vs_cpu).
+    batch = agent.buffer.sample(np.random.default_rng(SEED + 51),
+                                cfg.batch_size)
+    upd, upd_failed = {}, []
+    for start, path in (("initial", out_dir / "initial.npz"),
+                        ("trained", ckpt)):
+        upd[start], failed, card_agent = update_card_vs_cpu(dev, cfg, path,
+                                                            batch)
+        upd_failed += [f"{start}: {f}" for f in failed]
+    update_ms = cuda_ms(lambda: card_agent.update(batch), 20)
+
+    # save_fb then load_fb: every tensor bit for bit.
+    nets, _, extra = load_fb(ckpt, cfg)
+    saved_equal = all(
+        torch.equal(p.detach().cpu(), q)
+        for name in PARTS for p, q in zip(agent.nets[name].parameters(),
+                                          nets[name].parameters()))
+    saved_equal &= extra["updates"] == agent.updates and len(
+        extra["light_memory"]) == len(agent.light_memory)
+    check(saved_equal, "fb_train: save_fb/load_fb round trip differs")
+
+    # Times: a scene's walk (host clock, synchronised), its 8 sweep launches
+    # replayed (device time queued behind a spin kernel, CUDA events around
+    # the wrapper calls, the plain version), the sweep's bound on the walk's
+    # rays (core/cuda_intersect.py::sweep_work).
+    draws = fb_walk.draw_walk(T_WALKERS, scene.num_spheres, BOUNCES,
+                              start_bias=tr.START_BIAS,
+                              generator=torch.Generator(dev).manual_seed(
+                                  SEED + 52), device=dev)
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        walk_sweep(scene, draws)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    _, calls = walk_sweep(scene, draws)
+
+    def replay(fn=cuda_intersect.nearest_hit):
+        for args, kw, _ in calls:
+            fn(*args, **kw)
+
+    replay()
+    k_ms = cuda_ms(replay, 10)
+    k_dev_ms = queued_ms(replay)
+    k_plain_ms = cuda_ms(lambda: replay(cuda_intersect.nearest_hit_plain), 3)
+    work, k_bytes = {}, 0
+    for (lo, ld, sup, stable), kw, _ in calls:
+        add_work(work, cuda_intersect.sweep_work(lo, ld, sup, stable))
+        k_bytes += (W_BYTES_IN + W_BYTES_SUPPRESS + NH_BYTES_OUT) * lo.shape[0]
+    k_ops = sweep_ops(work)[0]
+    k_bound, k_by = bound(k_ops, k_bytes)
+
+    t1 = time.perf_counter()
+    held = tr.test_on_chandelier(num_tests=T_HELD_OUT)
+    held_s = time.perf_counter() - t1
+    stats = report["training_summary"]["agent_stats"]
+    emit({"phase": "fb_train", **card,
+          "trainer": "ChandelierOnlyTrainer", "config": {
+              k: getattr(cfg, k) for k in ("z_dim", "e_hidden_dim",
+                                           "f_hidden_dim", "b_hidden_dim",
+                                           "batch_size", "update_freq",
+                                           "max_bounces")},
+          "scenes": scenes, "guided_scenes": T_GUIDED_SCENES,
+          "guide_prob": T_GUIDE_PROB, "walkers_a_scene": T_WALKERS,
+          "launches": launches, "train_seconds": train_s,
+          "scenes_per_s": scenes / train_s,
+          "updates": agent.updates, "updates_per_s": agent.updates / train_s,
+          "buffer": agent.buffer.size, "light_hits": stats["performance"][
+              "light_hits"], "light_memory": len(agent.light_memory),
+          "loss_first": agent.losses[0], "loss_last": agent.losses[-1],
+          "avg_hit_rate": report["performance_statistics"]["avg_hit_rate"],
+          "render_probe": report["training_summary"].get(
+              "render_probe_history"),
+          "walk_kernel_vs_plain_bit_equal": equal,
+          "walk_max_abs_t_err": walk_err,
+          "update_card_vs_cpu": upd, "update_bounds": {
+              "loss_terms": T_LOSS_TOL, "grad_vs_f64_same_branches":
+              T_GRAD_TOL, "kink_inputs_vs_f64": T_ACT_TOL,
+              "adam_step_vs_f64_in_ulps": T_STEP_ULPS},
+          "save_load_bit_equal": saved_equal,
+          "walk_wall_ms": walls, "walk_wall_ms_median": sorted(walls)[2],
+          "sweep_launches_a_walk": len(calls),
+          "sweep_device_ms_a_walk": k_dev_ms,
+          "sweep_device_ms_a_launch": k_dev_ms / len(calls),
+          "sweep_wrapper_ms_a_walk": k_ms, "sweep_plain_ms_a_walk": k_plain_ms,
+          "sweep_bound_ms_a_walk": k_bound, "sweep_bound_by": k_by,
+          "sweep_bound_ops": k_ops, "sweep_bound_bytes": k_bytes,
+          "sweep_bound_share": k_bound / max(k_dev_ms, 1e-9),
+          "sweep_work": work, "update_ms": update_ms,
+          "held_out_chandelier": held, "held_out_seconds": held_s,
+          "max_memory_allocated_bytes": peak, "library_ms": None,
+          "seconds": time.perf_counter() - t0})
+    check(not upd_failed, f"fb_train: update step: {upd_failed}: {upd}")
+    # launches: the whole training run's; the times: one walk's launches.
+    return tr, ckpt, {
+        "name": "nearest_hit_walk", "route": "cuda",
+        "source": "raytracer_tpu_torch/csrc/nearest_hit.cu",
+        "replaces": "raytracer_tpu/core/pallas_intersect.py:42",
+        "launches": launches["nearest_hit"], "launches_timed": len(calls),
+        "max_abs_err": walk_err, "ms": k_dev_ms, "plain_ms": k_plain_ms, "bound_ms": k_bound,
+        "bound_by": k_by, "library_ms": None}
+
+
+def guided_obs_rows(scene, o, d, u, f, guide):
+    """The observations of the guided rows of a hybrid trace on these draws
+    (diffuse continuing lanes whose fb uniform is below fb_prob, level by
+    level): ``[rows, 22]``."""
+    seen = []
+
+    def recording(obs):
+        seen.append(obs.clone())
+        return guide(obs)
+
+    calls = recorded_launches(cuda_level, "path_level", lambda: trace_path(
+        scene, o, d, max_bounces=BOUNCES, mirror_threshold=G_THRESHOLD,
+        background=BG, uniforms=u, fb_uniforms=f, fb_prob=G_FB_PROB,
+        guide_fn=recording, impl="hybrid"))
+    check(len(calls) == len(seen) == BOUNCES,
+          f"guided rows: {len(calls)} levels, {len(seen)} guide calls")
+    rows = []
+    for lvl, ((_, _, lv), obs) in enumerate(zip(calls, seen)):
+        st = lv.state
+        use = (((st & cuda_level.ST_CONT) != 0)
+               & ((st & cuda_level.ST_MIRROR) == 0) & (f[lvl] < G_FB_PROB))
+        rows.append(obs[use])
+    return torch.cat(rows)
+
+
+def fb_guide_dtypes_phase(dev, card, scene, params, cfg, ckpt):
+    """Phase fb_guide_dtypes: the agent fb_train trained, as a guide in f32,
+    bf16 and int8 through render_path(impl="hybrid") at bench.py's
+    full-agent cell; the dtypes' actions on the frame's guided rows against
+    f32's, the int8 guide on the card against its CPU twin, frame and guide
+    times against each dtype's bound, hits against the traditional
+    frame's.  Writes the far rows and a sample beside the checkpoint
+    (``guided_rows.npz``, read by tests/int8_rows_vs_jax.py)."""
+    t0 = time.perf_counter()
+    agent = TrainedFBAgent(str(ckpt), scene, small_light_indices(scene),
+                           params["camera_position"], config=cfg, seed=SEED,
+                           device=dev)
+    guides = {"float32": agent.as_guide_fn(),
+              "bfloat16": agent.as_guide_fn(torch.bfloat16),
+              "int8": agent.as_guide_fn("int8")}
+    fkw = dict(width=A_W, height=A_H, spp=SPP, max_bounces=BOUNCES,
+               fov=params["fov"], camera_position=params["camera_position"],
+               mirror_threshold=G_THRESHOLD, background=BG, device=dev,
+               impl="hybrid")
+
+    def frame(g=None):
+        kw = {} if g is None else dict(guide_fn=g, fb_prob=G_FB_PROB)
+        out = render_path(scene, generator=torch.Generator(dev).manual_seed(
+            SEED + 60), **fkw, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    _, trad = frame()
+    trad = trad.as_dict()
+    # The frame's guided rows, and each dtype's actions on them.
+    gen = torch.Generator(dev).manual_seed(SEED + 61)
+    jitter = torch.rand((SPP, A_H, A_W, 2), device=dev, generator=gen)
+    o, d = perspective_rays(A_W, A_H, fov=params["fov"],
+                            origin=params["camera_position"],
+                            sample_xy=jitter)
+    o = o.contiguous()
+    R = o.shape[0]
+    u = torch.rand((BOUNCES, R, 2), device=dev, generator=gen)
+    f = torch.rand((BOUNCES, R), device=dev, generator=gen)
+    rows = guided_obs_rows(scene, o, d, u, f, guides["float32"])
+    ref = guides["float32"](rows)
+    acts, diffs = {}, {}
+    for name in ("bfloat16", "int8"):
+        acts[name] = guides[name](rows)
+        dd = (acts[name] - ref).abs()
+        diffs[name] = {"max": float(dd.max()), "mean": float(dd.mean()),
+                       "rows_at_or_over_max_bound": int(
+                           (dd.amax(1) >= DTYPE_BOUNDS[name]["max"]).sum())}
+    # The rows that hold JAX's own int8 guide to the same comparison
+    # (tests/int8_rows_vs_jax.py): every row the int8 guide moves by 0.1 or
+    # more, and a seeded sample of the others.
+    far = (acts["int8"] - ref).abs().amax(1) >= 0.1
+    pick = far | (torch.rand(rows.shape[0], generator=torch.Generator(
+        dev).manual_seed(SEED + 63), device=dev) < 16384 / rows.shape[0])
+    np.savez(ckpt.parent / "guided_rows.npz",
+             rows=rows[pick].cpu().numpy(), f32=ref[pick].cpu().numpy(),
+             bf16=acts["bfloat16"][pick].cpu().numpy(),
+             int8=acts["int8"][pick].cpu().numpy(),
+             proto=agent.light_prototype)
+    # The int8 guide's products on the card (torch._int_mm, padded) against
+    # its CPU twin's int32 products on the same int8 activations: exact
+    # integers, so bit for bit, layer by layer, at a ragged row count and
+    # at one below _int_mm's 17 rows.  Then the whole guide on the frame's
+    # first 4,096 guided rows: a row whose int8 activations are the same on
+    # both devices is within float rounding; where a 1-ulp difference
+    # upstream rounded an activation to the next int8 level, the row is
+    # within the CPU tests' bound.
+    twin = quantize.Int8AgentApply(guides["int8"].qparams, cfg.z_dim, "cpu")
+    gen = torch.Generator(dev).manual_seed(SEED + 62)
+    products_equal = True
+    for card_l, cpu_l in zip(guides["int8"].layers(), twin.layers()):
+        for m in (4099, 5):
+            qx = torch.randint(-127, 128, (m, card_l.k_in), generator=gen,
+                               device=dev, dtype=torch.int8)
+            products_equal &= bool(torch.equal(card_l.int_product(qx).cpu(),
+                                               cpu_l.int_product(qx.cpu())))
+    sub = rows[:4096]
+    levels = {}
+    for side, g in (("card", guides["int8"]), ("cpu", twin)):
+        seen = levels[side] = []
+        for layer in g.layers():
+            def taped(qx, real=layer.int_product, seen=seen):
+                seen.append(qx.cpu())
+                return real(qx)
+            layer.int_product = taped
+    try:
+        tw = (guides["int8"](sub).cpu() - twin(sub.cpu())).abs().amax(1)
+    finally:
+        for g in (guides["int8"], twin):
+            for layer in g.layers():
+                del layer.int_product
+    moved = torch.stack([(a != b).any(1) for a, b in zip(levels["card"],
+                                                         levels["cpu"])])
+    same = ~moved.any(0)
+    twin_err = {"max_same_levels": float(tw[same].max()) if same.any()
+                else 0.0,
+                "rows_other_levels": int((~same).sum()),
+                "max_other_levels": float(tw.max()),
+                "rows": int(tw.numel()), "int_products_bit_equal":
+                products_equal, "layers": len(twin.layers())}
+    row_flops = agent_guide_flops(cfg)
+    peaks = {"float32": PEAK_F32_FLOPS, "bfloat16": PEAK_BF16,
+             "int8": PEAK_INT8}
+    out = {}
+    for name, g in guides.items():
+        img, st = frame(g)
+        check(bool(torch.isfinite(img).all()) and st.as_dict()["fb_used"] > 0,
+              f"fb_guide_dtypes {name}: {st.as_dict()}")
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            frame(g)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        timed = TimedGuide(g)
+        frame(timed)
+        g_ms = timed.ms()
+        g_bound = BOUNCES * R * row_flops / peaks[name] * 1e3
+        st = st.as_dict()
+        out[name] = {
+            "frame_wall_ms": walls, "frame_wall_ms_median": sorted(walls)[1],
+            "guide_ms": g_ms, "guide_calls": len(timed.events),
+            "guide_bound_ms": g_bound, "guide_bound_rate": peaks[name],
+            "guide_bound_share": g_bound / g_ms, "stats": st,
+            "light_hits_over_traditional": st["light_hits"]
+            / max(trad["light_hits"], 1),
+            "small_light_hits_over_traditional": st["small_light_hits"]
+            / max(trad["small_light_hits"], 1)}
+    emit({"phase": "fb_guide_dtypes", **card,
+          "frame": f"{A_W}x{A_H}@{SPP}spp/{BOUNCES}", "impl": "hybrid",
+          "agent": f"trained by fb_train ({ckpt.name}), z {cfg.z_dim}, "
+                   f"encoder {cfg.e_hidden_dim}, backward {cfg.b_hidden_dim}",
+          "guided_rows": rows.shape[0], "vs_float32_on_guided_rows": diffs,
+          "bounds_vs_float32": DTYPE_BOUNDS, "int8_card_vs_cpu": twin_err,
+          "int8_card_vs_cpu_bounds": {"same_levels": INT8_SAME_LEVELS,
+                                      "other_levels": INT8_MAX,
+                                      "int_products": "bit equal"},
+          "traditional_stats": trad, "guide_flops_per_row": row_flops,
+          "dtypes": out, "seconds": time.perf_counter() - t0})
+    for name, dd in diffs.items():
+        check(dd["max"] < DTYPE_BOUNDS[name]["max"]
+              and dd["mean"] < DTYPE_BOUNDS[name]["mean"],
+              f"fb_guide_dtypes: {name} vs float32 on the guided rows {dd}")
+    check(products_equal and twin_err["max_same_levels"] <= INT8_SAME_LEVELS
+          and twin_err["max_other_levels"] <= INT8_MAX,
+          f"fb_guide_dtypes: int8 card vs CPU {twin_err}")
 
 
 def level_edges_phase(dev):
@@ -1591,6 +2148,10 @@ def main():
     whitted_kernels = whitted_phases(dev, card)
     guided_kernels = guided_phases(dev, card, scene, params, libs)
     fb_agent_phases(dev, card, scene, params)
+    train_dir = ROOT / "build" / "fb_train"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    trainer, ckpt, walk_kernel = fb_train_phase(dev, card, train_dir)
+    fb_guide_dtypes_phase(dev, card, scene, params, trainer.config, ckpt)
 
     emit({"kernels": [{
         "name": "path_trace", "route": "cuda",
@@ -1598,7 +2159,8 @@ def main():
         "replaces": "raytracer_tpu/core/pallas_path.py:213",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
-        "library_ms": None}] + whitted_kernels + guided_kernels})
+        "library_ms": None}] + whitted_kernels + guided_kernels
+        + [walk_kernel]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

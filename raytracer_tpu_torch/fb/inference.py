@@ -12,12 +12,15 @@ Counterpart of ``raytracer_tpu/fb/inference.py`` (``TrainedFBAgent``,
   packages draw the same points;
 * ``choose_direction(obs)``: the backward model's action mean on
   ``(encode(obs), prototype)``, clipped to [-1, 1];
-* ``as_guide_fn()``: ``obs [R, 22] -> action [R, 2]`` for ``trace_path``,
-  one batched forward a bounce level (the guide runs on every lane of a
-  level, as in the JAX tracers), f32.
+* ``as_guide_fn(dtype)``: ``obs [R, 22] -> action [R, 2]`` for
+  ``trace_path``, one batched forward a bounce level (the guide runs on
+  every lane of a level, as in the JAX tracers): f32, bf16 (flax's bf16
+  run: parameters, observation and prototype cast, LayerNorm statistics in
+  f32, f32 out) or int8 (``fb/quantize.py``).
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -33,23 +36,31 @@ from .networks import initialise
 class AgentGuide:
     """``guide(obs [R, 22]) -> action mean [R, 2]`` float32, under
     ``torch.inference_mode()``: encoder, the mean half of its output, the
-    backward model against the prototype.  ``obs`` must lie on the agent's
-    device."""
+    backward model against the prototype, in ``dtype`` (f32, or bf16 on
+    copies of the networks: JAX ``as_guide_fn(jnp.bfloat16)`` casts the
+    parameters, the observation and the prototype).  ``obs`` must lie on
+    the networks' device."""
 
-    def __init__(self, agent: "TrainedFBAgent"):
-        self.encoder, self.backward = agent.encoder, agent.backward
-        self.prototype = agent.prototype
-        self.z_dim = agent.config.z_dim
-        self.device = agent.device
+    def __init__(self, encoder, backward, prototype: torch.Tensor,
+                 z_dim: int, dtype=torch.float32):
+        if dtype != torch.float32:
+            encoder = copy.deepcopy(encoder).to(dtype)
+            backward = copy.deepcopy(backward).to(dtype)
+        self.encoder, self.backward = encoder, backward
+        self.dtype = dtype
+        self.prototype = prototype.to(dtype)
+        self.z_dim = z_dim
+        self.device = prototype.device
 
     def __call__(self, obs: torch.Tensor) -> torch.Tensor:
         if obs.device != self.device:
             raise ValueError(f"observations on {obs.device}; the agent's "
                              f"networks are on {self.device}")
         with torch.inference_mode():
-            z = self.encoder(obs.float())[:, :self.z_dim]
+            z = self.encoder(obs.to(self.dtype))[:, :self.z_dim]
             proto = self.prototype.expand(z.shape[0], -1)
-            return self.backward.action_mean(self.backward.trunk(z, proto))
+            mean = self.backward.action_mean(self.backward.trunk(z, proto))
+            return mean.float()
 
 
 class TrainedFBAgent:
@@ -168,14 +179,21 @@ class TrainedFBAgent:
         a = np.clip(mean.cpu().numpy(), -1.0, 1.0)
         return a[0] if a.shape[0] == 1 else a
 
-    def as_guide_fn(self, dtype=None) -> AgentGuide:
-        """The agent as a ``trace_path`` guide, f32.  ``None``, ``"auto"``
-        (JAX picks f32 off the TPU) and ``torch.float32`` give f32; the
-        bf16 and int8 guides are not ported yet."""
-        if dtype not in (None, "auto", torch.float32):
-            raise ValueError(f"guide dtype {dtype!r}: only float32 is "
-                             "ported (None or 'auto')")
-        return AgentGuide(self)
+    def as_guide_fn(self, dtype=None):
+        """The agent as a ``trace_path`` guide.  ``None``, ``"auto"`` (JAX
+        picks f32 off the TPU) and ``torch.float32`` give f32;
+        ``torch.bfloat16`` the bf16 guide; ``"int8"`` the dynamically
+        quantized one (``fb/quantize.py::make_int8_guide``)."""
+        if dtype == "int8":
+            from .quantize import make_int8_guide
+            return make_int8_guide(self)
+        if dtype in (None, "auto"):
+            dtype = torch.float32
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"guide dtype {dtype!r}: float32 (None or "
+                             "'auto'), torch.bfloat16 or 'int8'")
+        return AgentGuide(self.encoder, self.backward, self.prototype,
+                          self.config.z_dim, dtype)
 
 
 def small_light_indices(scene: Scene, radius_below: float = 0.5

@@ -9,11 +9,14 @@ shapes, so a flax parameter path such as
 params_from_flat`` copies them across).  Kernels are ``[in, out]`` and a
 layer is ``x @ kernel + bias``, two roundings, as flax's ``Dense``.
 
-The arithmetic is flax's, in f32, with two exceptions stated where they
-happen: dropout is the identity (inference only), and the single-token
-attention skips its query and key projections.  Products are
-``torch.matmul``; the JAX package leaves them to XLA, outside any Pallas
-kernel.  The ``Simple*`` family waits for the ``.pth`` import.
+The arithmetic is flax's, in the parameters' dtype (f32, or bf16 for the
+bf16 guide), with two exceptions stated where they happen: dropout is the
+identity (the learner's loss runs flax's modules deterministic too), and
+the single-token attention skips its query and key projections.  Products
+are ``torch.matmul``; the JAX package leaves them to XLA, outside any
+Pallas kernel.  Parameters carry no gradient until the learner
+(``fb/agent.py``) asks for one.  The ``Simple*`` family waits for the
+``.pth`` import.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ Shape = Union[int, Sequence[int]]
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # Inference only (training stays with the JAX package): no gradients,
-    # so the layers may update their own intermediates in place.
+    # No gradient by default (the guide); the layers' in-place updates of
+    # their own intermediates are ones autograd can differentiate.
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -67,7 +70,10 @@ class LayerNorm(nn.Module):
     f32 as ``mean = E[x]``, ``var = max(0, E[x²] − mean²)``
     (``use_fast_variance``), then ``(x − mean) · (rsqrt(var + 1e-6) ·
     scale) + bias``.  ``F.layer_norm`` takes ε = 1e-5 and a two-pass
-    variance, so it is not used."""
+    variance, so it is not used.  A bf16 input is normalised in f32 and
+    rounded to bf16 once at the end, as flax 0.12's
+    ``force_float32_reductions`` does (``_compute_stats``, ``_normalize``:
+    at least f32, so f64 stays f64)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -75,11 +81,12 @@ class LayerNorm(nn.Module):
         self.bias = _param(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(-1, keepdim=True)
-        mean2 = (x * x).mean(-1, keepdim=True)
+        xf = x if x.dtype.itemsize >= 4 else x.float()
+        mean = xf.mean(-1, keepdim=True)
+        mean2 = (xf * xf).mean(-1, keepdim=True)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        mul = torch.rsqrt(var + LAYER_NORM_EPS) * self.scale
-        return (x - mean).mul_(mul).add_(self.bias)
+        mul = torch.rsqrt(var + LAYER_NORM_EPS) * self.scale.to(xf.dtype)
+        return (xf - mean).mul_(mul).add_(self.bias.to(xf.dtype)).to(x.dtype)
 
 
 class SingleTokenAttention(nn.Module):
@@ -87,12 +94,16 @@ class SingleTokenAttention(nn.Module):
     ``x[..., None, :]``): the softmax over one key is exactly 1.0, so the
     output is exactly ``out(value(x))``.  The query and key projections are
     skipped, which differs from flax only where a score ``q·k/√d`` is NaN
-    or infinite (flax then gives NaN); the checkpoint's ``query``/``key``
-    weights are not read."""
+    or infinite (flax then gives NaN).  Their weights are held, unused, so
+    a checkpoint keeps them both ways; their gradient is exactly 0 in flax
+    (the softmax of one score is constant), so the learner leaves them as
+    flax's Adam does."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         head = (num_heads, dim // num_heads)
+        self.query = Dense(dim, head)
+        self.key = Dense(dim, head)
         self.value = Dense(dim, head)
         self.out = Dense(head, dim)
 
@@ -208,8 +219,11 @@ class BackwardModel(nn.Module):
         return x
 
     def action_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean head on the trunk's output ``x``."""
-        return torch.tanh(self.Dense_1(x)) * 0.95
+        """The mean head on the trunk's output ``x``.  The 0.95 is rounded
+        to ``x``'s dtype first, as JAX rounds a weakly typed constant
+        (bf16: 0.94921875)."""
+        a = torch.tanh(self.Dense_1(x))
+        return a * torch.full((), 0.95, dtype=a.dtype, device=a.device)
 
     def forward(self, z_t: torch.Tensor, z_next: torch.Tensor):
         x = self.trunk(z_t, z_next)

@@ -1,16 +1,20 @@
-"""FB checkpoints: the reading side of the native npz format.
+"""FB checkpoints in the native npz format, both ways.
 
-Counterpart of ``raytracer_tpu/utils/checkpoint.py::load_fb``, with numpy
-alone.  The file holds each network's flattened flax parameters under
-``<part>::<flax path>`` (``encoder::ResidualBlock_0/LayerNorm_1/scale``,
-``backward::Dense_0/kernel``), ``__meta__`` (JSON: the config, the noise
-scale, the update count) and ``__light_memory__ [M, z_dim]``.  Slim
-inference checkpoints hold the encoder and the backward model only.
-Writing stays with the JAX package's trainer.
+Counterpart of ``raytracer_tpu/utils/checkpoint.py`` (``save_fb``,
+``load_fb``), with numpy alone.  The file holds each network's flattened
+flax parameters under ``<part>::<flax path>``
+(``encoder::ResidualBlock_0/LayerNorm_1/scale``, ``backward::Dense_0/
+kernel``), ``__meta__`` (JSON: the config, the noise scale, the update
+count) and ``__light_memory__ [M, z_dim]``.  Slim inference checkpoints
+hold the encoder and the backward model only.  The port's parameter names
+are flax's paths with ``.`` for ``/``, so ``save_fb`` writes exactly the
+keys JAX's ``_flatten`` writes: a checkpoint of either package loads in
+the other's ``load_fb``.
 """
 from __future__ import annotations
 
 import json
+from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -37,9 +41,8 @@ def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray],
     """Copy flattened flax parameters into ``module``: the parameter
     ``A.B.kernel`` reads ``flat[prefix + "A/B/kernel"]``, which must have
     its shape (flax's).  Raises ``KeyError`` for a missing key and
-    ``ValueError`` on a shape mismatch, as JAX's ``_unflatten_like`` does;
-    keys the module does not hold (the attention's query and key) are not
-    read."""
+    ``ValueError`` on a shape mismatch, as JAX's ``_unflatten_like``
+    does."""
     for name, param in module.named_parameters():
         key = prefix + name.replace(".", "/")
         if key not in flat:
@@ -84,3 +87,32 @@ def load_fb(path, config: FBConfig
              "noise_scale": meta.get("noise_scale"),
              "updates": meta.get("updates")}
     return nets, meta.get("config", {}), extra
+
+
+def flat_params(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of ``load_flat``: ``{prefix + flax path: float32 numpy}``
+    for every parameter of ``module``."""
+    return {prefix + name.replace(".", "/"):
+            param.detach().cpu().numpy().astype(np.float32)
+            for name, param in module.named_parameters()}
+
+
+def save_fb(path, nets: Mapping[str, nn.Module], config: FBConfig,
+            **extra) -> None:
+    """Write ``nets`` (the four parts of ``PARTS``) in JAX ``save_fb``'s
+    layout (:44-57): flattened parameters, ``__meta__`` with the config,
+    ``noise_scale`` and ``updates``, and ``__light_memory__`` (``[0,
+    z_dim]`` when empty)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    flat = {}
+    for name in PARTS:
+        flat.update(flat_params(nets[name], prefix=f"{name}::"))
+    meta = {"config": config.to_dict(),
+            "noise_scale": float(extra.get("noise_scale", 0.0)),
+            "updates": int(extra.get("updates", 0))}
+    lm = extra.get("light_memory") or []
+    np.savez(path, __meta__=json.dumps(meta),
+             __light_memory__=(np.stack(lm) if lm
+                               else np.zeros((0, config.z_dim), np.float32)),
+             **flat)

@@ -32,7 +32,21 @@ just after:
   scene's walk sweeps with the nearest-hit kernel, 8 launches, and the
   render probe runs the hybrid's level kernel (phase fb_train); then the
   agent it trained as an f32, bf16 and int8 guide through impl="hybrid" at
-  the full-agent cell's shape (phase fb_guide_dtypes).
+  the full-agent cell's shape (phase fb_guide_dtypes);
+* the FB-vs-traditional comparison harness (the JAX CLI's
+  compare-chandelier and compare-complex): chandelier_comparison with the
+  shipped students at 200x100 and 800x600, 8 spp, 8 bounces, impl="kernel"
+  on both sides (compare_student), complex_comparison with the shipped
+  complex student (compare_complex), run_comparison with the agent
+  fb_train trained through impl="hybrid" and "stepwise" (compare_agent),
+  and spp_chunk=2 at 800x600 (compare_chunked);
+* the distillation: distill_agent on that agent at its defaults, its
+  observation walk the stepwise level (the nearest-hit kernel a level) and
+  its shooting the nearest-hit kernel, then the student it makes through
+  the guided kernel (phase distill);
+* the output5 experiment: trace_output5's three methods at the fast_mode
+  grid (the nearest-hit kernel a level), then CustomSceneExperiment end to
+  end (the Whitted kernel for true_original; phase output5).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -59,12 +73,17 @@ import torch
 
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted, native, vec)
+from raytracer_tpu_torch.compare.experiment import (CONFIG_MODES,
+                                                    CustomSceneExperiment)
+from raytracer_tpu_torch.compare.harness import (chandelier_comparison,
+                                                 complex_comparison,
+                                                 run_comparison, side_seeds)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
-from raytracer_tpu_torch.fb import quantize
+from raytracer_tpu_torch.fb import distill, quantize
 from raytracer_tpu_torch.fb import trajectory as fb_walk
 from raytracer_tpu_torch.fb.agent import FBResearchAgent, loss_terms
 from raytracer_tpu_torch.fb.config import FBConfig
-from raytracer_tpu_torch.fb.distill import DistilledGuide
+from raytracer_tpu_torch.fb.distill import DistilledGuide, distill_agent
 from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
                                               small_light_indices)
 from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
@@ -75,10 +94,14 @@ from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
 from raytracer_tpu_torch.render.path_renderer import render_path
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
+from raytracer_tpu_torch.scene.complex import (create_camera_for_scene,
+                                               create_complex_scene)
 from raytracer_tpu_torch.scene.library import chandelier_scene
 from raytracer_tpu_torch.tools import level_edges, sweep_edges
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
+from raytracer_tpu_torch.trace.output5_style import METHODS as O5_METHODS
+from raytracer_tpu_torch.trace.output5_style import draw_planes, trace_output5
 from raytracer_tpu_torch.trace.whitted import trace_whitted
 
 ROOT = Path(__file__).resolve().parent
@@ -213,6 +236,17 @@ INT8_SAME_LEVELS = 1e-5
 DTYPE_BOUNDS = {"bfloat16": dict(max=0.15, mean=0.03),
                 "int8": dict(max=0.17, mean=0.03)}
 PEAK_INT8 = 1979e12
+# The comparison harness, the distillation and the output5 experiment: the
+# reference comparison's frame (FB/fb_vs_traditional_chandelier.py, the JAX
+# CLI's compare-chandelier defaults) and the deployment frame (W x H); the
+# harness's best-of timed renders; the chunk of compare_chunked (the CLI's
+# --spp-chunk); the counts held against plain; the experiment's mode.
+C_W, C_H = 200, 100
+C_ITERS = 3
+C_CHUNK = 2
+C_COUNTS = ("total_rays", "total_intersections", "light_hits",
+            "small_light_hits")
+O5_MODE = "fast_mode"
 # level_edges: seeded scenes on the edges of the level's exact rewrites
 # (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
 EDGE_SEEDS = (SEED + 20, SEED + 21, SEED + 22)
@@ -1869,6 +1903,453 @@ def fb_guide_dtypes_phase(dev, card, scene, params, cfg, ckpt):
           f"fb_guide_dtypes: int8 card vs CPU {twin_err}")
 
 
+class plain_sweep:
+    """``with plain_sweep():`` every caller of ``cuda_intersect.
+    nearest_hit`` sweeps with ``nearest_hit_plain`` (no launch)."""
+
+    def __enter__(self):
+        self.kernel = cuda_intersect.nearest_hit
+        cuda_intersect.nearest_hit = cuda_intersect.nearest_hit_plain
+
+    def __exit__(self, *exc):
+        cuda_intersect.nearest_hit = self.kernel
+
+
+def launch_counts():
+    return {"path_trace": route_counts(),
+            "path_level": cuda_level.path_level.launches,
+            "nearest_hit": cuda_intersect.nearest_hit.launches,
+            "whitted_trace": cuda_whitted.whitted_trace.launches}
+
+
+def add_launches(total, counts):
+    """Sums ``launch_counts()`` dicts into ``total``."""
+    for k, v in counts.items():
+        if isinstance(v, dict):
+            add_launches(total.setdefault(k, {}), v)
+        else:
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def sweep_entry(name, calls, err):
+    """A ``kernels`` entry for the nearest-hit launches ``calls`` (as
+    ``recorded_launches`` returns them), replayed: device ms queued behind a
+    spin kernel, the plain version's ms, the bound from the sweep's work
+    on these rays."""
+    def replay(fn=cuda_intersect.nearest_hit):
+        for args, kw, _ in calls:
+            fn(*args, **kw)
+
+    dev_ms = queued_ms(replay)
+    plain_ms = cuda_ms(lambda: replay(cuda_intersect.nearest_hit_plain), 2)
+    work, nbytes = {}, 0
+    for (lo, ld, sup, stable), kw, _ in calls:
+        add_work(work, cuda_intersect.sweep_work(lo, ld, sup, stable))
+        nbytes += (W_BYTES_IN + NH_BYTES_OUT) * lo.shape[0]
+    ops = sweep_ops(work)[0]
+    b_ms, b_by = bound(ops, nbytes)
+    return {"name": name, "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/nearest_hit.cu",
+            "replaces": "raytracer_tpu/core/pallas_intersect.py:42",
+            "launches_timed": len(calls), "max_abs_err": err, "ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ops": ops, "bound_bytes": nbytes, "library_ms": None}
+
+
+def sweep_vs_plain(calls):
+    """The recorded nearest-hit ``calls`` against ``nearest_hit_plain`` on
+    the same arguments: ``(max |t - t_plain| over hits, found and idx
+    equal)``; ``found`` must be equal everywhere, ``idx`` where found."""
+    err, same = 0.0, True
+    for args, kw, (t, idx, found) in calls:
+        tp, ip, fp = cuda_intersect.nearest_hit_plain(*args, **kw)
+        same = (same and bool(torch.equal(found, fp))
+                and bool(torch.equal(idx.long().where(found, -1),
+                                     ip.long().where(fp, -1))))
+        err = max(err, float((t - tp).abs().where(found & fp, 0.0).max()))
+    return err, same
+
+
+def plain_sides(scene, model, w, h, camera_position, dev):
+    """The chandelier comparison's two sides through impl "plain" on the
+    generators ``run_comparison`` seeds from ``SEED``: ``(traditional
+    counts, guided counts)``."""
+    trad_seed, fb_seed = side_seeds(SEED)
+    rkw = dict(width=w, height=h, spp=SPP, max_bounces=BOUNCES,
+               camera_position=camera_position, device=dev)
+    _, tp = render_path(scene, mirror_threshold=0.0, impl="plain",
+                        generator=torch.Generator(dev).manual_seed(
+                            trad_seed), **rkw)
+    guide = DistilledGuide.load(model).as_guide_fn()
+    _, fp = render_path(scene, mirror_threshold=G_THRESHOLD,
+                        guide_fn=guide, fb_prob=G_FB_PROB, impl="plain",
+                        generator=torch.Generator(dev).manual_seed(
+                            fb_seed), **rkw)
+    return tp.as_dict(), fp.as_dict()
+
+
+def sides_match(stats, tp, fp):
+    """``(traditional counts equal plain's, guided hits within the dense
+    student's bounds of plain's)``."""
+    return (all(stats["traditional"][k] == tp[k] for k in C_COUNTS),
+            all(hits_close(stats["fb"][k], fp[k])
+                for k in ("light_hits", "small_light_hits")))
+
+
+def compare_student_phase(dev, card, scene, params, out_dir, launches):
+    """Phase compare_student: chandelier_comparison with the shipped
+    student the registry routes to the camera, impl "kernel" on both sides,
+    at the reference comparison (200x100) and the deployment frame
+    (800x600), 8 spp, 8 bounces; each side against the same render through
+    impl "plain" on the same generator (traditional: every count equal;
+    guided: the dense bf16 student's bounds)."""
+    for w, h in ((C_W, C_H), (W, H)):
+        t0 = time.perf_counter()
+        model = model_path_for("chandelier", w, h, STUDENTS_DIR)
+        check(model is not None, f"no shipped student for {w}x{h}")
+        reset_counts()
+        stats = chandelier_comparison(
+            model_path=model, width=w, height=h, samples_per_pixel=SPP,
+            max_bounces=BOUNCES, impl="kernel", timing_iters=C_ITERS,
+            out_dir=out_dir / f"student_{w}x{h}", device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add_launches(launches, counts)
+        tp, fp = plain_sides(scene, model, w, h, params["camera_position"],
+                             dev)
+        trad_equal, fb_ok = sides_match(stats, tp, fp)
+        emit({"phase": "compare_student", **card,
+              "frame": f"{w}x{h}@{SPP}spp/{BOUNCES}",
+              "model": str(Path(model).relative_to(ROOT)),
+              "statistics": stats, "launches": counts,
+              "traditional_plain_counts": tp,
+              "traditional_equal_plain": trad_equal,
+              "fb_plain_counts": fp, "fb_within_bounds_of_plain": fb_ok,
+              "seconds": time.perf_counter() - t0})
+        check(counts["path_trace"]["unguided"] == C_ITERS + 1
+              and counts["path_trace"]["bf16_mma"] == C_ITERS + 1,
+              f"compare_student {w}x{h}: launches {counts}")
+        check(trad_equal, f"compare_student {w}x{h}: traditional counts "
+              f"{stats['traditional']} != plain {tp}")
+        check(fb_ok, f"compare_student {w}x{h}: guided counts "
+              f"{stats['fb']} outside the bounds of plain {fp}")
+        check(stats["fb"]["fb_used"] > 0, "compare_student: no guided bounce")
+
+
+def compare_complex_phase(dev, card, out_dir, launches):
+    """Phase compare_complex: complex_comparison with the shipped complex
+    student, impl "kernel", 200x100@8spp/8; the traditional side (diffuse
+    at 0.9) against plain within the diffuse bounds of diffuse_and_ragged,
+    the guided side within the dense student's."""
+    t0 = time.perf_counter()
+    model = STUDENTS_DIR / "fb_complex_distilled.npz"
+    reset_counts()
+    stats = complex_comparison(model_path=str(model), width=C_W, height=C_H,
+                               samples_per_pixel=SPP, max_bounces=BOUNCES,
+                               impl="kernel", timing_iters=C_ITERS,
+                               out_dir=out_dir / "complex", device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_launches(launches, counts)
+    scene, _, _ = create_complex_scene(device=dev)
+    trad_seed, fb_seed = side_seeds(SEED)
+    rkw = dict(width=C_W, height=C_H, spp=SPP, max_bounces=BOUNCES,
+               camera_position=create_camera_for_scene(), device=dev,
+               mirror_threshold=G_THRESHOLD, impl="plain")
+    _, tp = render_path(scene, generator=torch.Generator(dev).manual_seed(
+        trad_seed), **rkw)
+    _, fp = render_path(scene, guide_fn=DistilledGuide.load(model)
+                        .as_guide_fn(), fb_prob=G_FB_PROB,
+                        generator=torch.Generator(dev).manual_seed(fb_seed),
+                        **rkw)
+    tp, fp = tp.as_dict(), fp.as_dict()
+    trad_ok = stats_close({k: stats["traditional"][k] for k in C_COUNTS[:3]},
+                          {k: tp[k] for k in C_COUNTS[:3]}, 0.02)
+    fb_ok = all(hits_close(stats["fb"][k], fp[k])
+                for k in ("light_hits", "small_light_hits"))
+    emit({"phase": "compare_complex", **card,
+          "frame": f"{C_W}x{C_H}@{SPP}spp/{BOUNCES}",
+          "model": str(model.relative_to(ROOT)), "statistics": stats,
+          "launches": counts, "traditional_plain_counts": tp,
+          "traditional_within_2pct_of_plain": trad_ok,
+          "fb_plain_counts": fp, "fb_within_bounds_of_plain": fb_ok,
+          "seconds": time.perf_counter() - t0})
+    check(counts["path_trace"]["bf16_mma"] == C_ITERS + 1,
+          f"compare_complex: launches {counts}")
+    check(trad_ok and fb_ok, f"compare_complex: {stats} vs plain {tp}, {fp}")
+    check(stats["fb"]["fb_used"] > 0, "compare_complex: no guided bounce")
+
+
+def compare_agent_phase(dev, card, scene, params, ckpt, out_dir, launches):
+    """Phase compare_agent: run_comparison with the agent fb_train trained
+    (its checkpoint), impl "hybrid" then "stepwise" on both sides,
+    200x100@8spp/8: every count equal across the two impls."""
+    t0 = time.perf_counter()
+    out, counts = {}, {}
+    for impl in ("hybrid", "stepwise"):
+        reset_counts()
+        out[impl] = run_comparison(
+            scene, camera_position=params["camera_position"], width=C_W,
+            height=C_H, samples_per_pixel=SPP, max_bounces=BOUNCES,
+            model_path=str(ckpt), impl=impl, scene_name="chandelier",
+            out_dir=out_dir / f"agent_{impl}", device=dev)
+        torch.cuda.synchronize()
+        counts[impl] = launch_counts()
+        add_launches(launches, counts[impl])
+    keys = {"traditional": C_COUNTS, "fb": C_COUNTS + ("fb_used",
+                                                       "fb_success")}
+    equal = all(out["hybrid"][s][k] == out["stepwise"][s][k]
+                for s, ks in keys.items() for k in ks)
+    emit({"phase": "compare_agent", **card,
+          "frame": f"{C_W}x{C_H}@{SPP}spp/{BOUNCES}",
+          "model": str(ckpt.relative_to(ROOT)), "statistics": out,
+          "launches": counts, "counts_equal_across_impls": equal,
+          "seconds": time.perf_counter() - t0})
+    renders = 2 * 2                      # warm-up and timed, both sides
+    check(counts["hybrid"]["path_level"] == renders * BOUNCES
+          and counts["stepwise"]["nearest_hit"] == renders * BOUNCES,
+          f"compare_agent: launches {counts}")
+    check(equal, "compare_agent: hybrid and stepwise counts differ")
+    check(out["hybrid"]["fb"]["fb_used"] > 0, "compare_agent: no guided "
+          "bounce")
+
+
+def compare_chunked_phase(dev, card, scene, params, out_dir, launches):
+    """Phase compare_chunked: the harness with spp_chunk=2 (the CLI's
+    --spp-chunk, impl "kernel") at 800x600@8spp/8, then render_path with
+    spp_chunk=2 against its four chunks rendered one by one on the same
+    jitter (equal image and counts), and the peak memory of the chunked
+    frame against the unchunked one."""
+    t0 = time.perf_counter()
+    model = model_path_for("chandelier", W, H, STUDENTS_DIR)
+    reset_counts()
+    stats = chandelier_comparison(
+        model_path=model, width=W, height=H, samples_per_pixel=SPP,
+        max_bounces=BOUNCES, impl="kernel", spp_chunk=C_CHUNK,
+        out_dir=out_dir / "chunked", device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_launches(launches, counts)
+    chunks = SPP // C_CHUNK
+    kw = dict(width=W, height=H, max_bounces=BOUNCES, mirror_threshold=0.0,
+              camera_position=params["camera_position"], device=dev)
+    jitter = torch.rand((SPP, H, W, 2), device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED + 61))
+    peaks = {}
+    for name, chunk in (("unchunked", None), ("chunked", C_CHUNK)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        img, st = render_path(scene, spp=SPP, jitter=jitter, impl="kernel",
+                              spp_chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+    total, chunk_stats = None, {}
+    for c in range(chunks):
+        o, d = perspective_rays(W, H, fov=params["fov"],
+                                origin=params["camera_position"],
+                                sample_xy=jitter[c * C_CHUNK:
+                                                 (c + 1) * C_CHUNK])
+        rgb, s = trace_path(scene, o, d, max_bounces=BOUNCES,
+                            mirror_threshold=0.0, background=BG,
+                            impl="kernel")
+        sums = rgb.reshape(C_CHUNK, H, W, 3).sum(0)
+        total = sums if total is None else total + sums
+        add_work(chunk_stats, s.as_dict())
+    want = torch.clamp_max(vec.div_scalar(torch.floor(
+        vec.div_scalar(total, SPP)), 255.0), 1.0)
+    equal = bool(torch.equal(img, want)) and st.as_dict() == chunk_stats
+    emit({"phase": "compare_chunked", **card,
+          "frame": f"{W}x{H}@{SPP}spp/{BOUNCES}", "spp_chunk": C_CHUNK,
+          "statistics": stats, "launches": counts,
+          "chunked_equals_sum_of_chunks": equal,
+          "peak_bytes_above_start": peaks,
+          "peak_ratio_chunked_to_unchunked":
+              peaks["chunked"] / peaks["unchunked"],
+          "seconds": time.perf_counter() - t0})
+    check(counts["path_trace"]["unguided"] == chunks * 2
+          and counts["path_trace"]["bf16_mma"] == chunks * 2,
+          f"compare_chunked: launches {counts}")
+    check(equal, "compare_chunked: the chunked frame != its chunks summed")
+    check(peaks["chunked"] < peaks["unchunked"],
+          f"compare_chunked: chunked peak {peaks}")
+
+
+def distill_phase(dev, card, scene, params, ckpt, out_dir, launches):
+    """Phase distill: distill_agent on the agent fb_train trained, the
+    chandelier at its defaults (4 frames an aspect, 30 epochs, hidden 64,
+    64, light-hit weights); the observation walk and the light-hit weights
+    with the kernel sweep against nearest_hit_plain (equal); the student
+    through compare_student's 200x100 comparison on the guided kernel.
+    Returns the walk sweep's ``kernels`` entry."""
+    t0 = time.perf_counter()
+    cam = params["camera_position"]
+    agent = TrainedFBAgent(str(ckpt), scene, small_light_indices(scene), cam,
+                           device=dev)
+    reset_counts()
+    student, res = distill_agent(agent, scene, camera_position=cam)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_launches(launches, counts)
+    path = out_dir / "fb_chandelier_distilled_card.npz"
+    student.save(path)
+
+    # One frame of the observation walk at 2:1, kernel and plain sweeps.
+    teacher = agent.as_guide_fn(dtype=None)
+    wkw = dict(width=128, height=64, frames=1, camera_position=cam,
+               device=dev)
+
+    def walk():
+        return distill.collect_observations(
+            scene, teacher, generator=torch.Generator(dev).manual_seed(
+                SEED + 62), **wkw)
+
+    walk_out = []
+    calls = recorded_launches(cuda_intersect, "nearest_hit",
+                              lambda: walk_out.append(walk()))
+    with plain_sweep():
+        obs_p = walk()
+    obs_k = walk_out[0]
+    walk_equal = bool(np.array_equal(obs_k, obs_p))
+    acts = np.clip(distill._chunked(teacher, obs_k, dev), -1.0, 1.0)
+    w_k = distill.light_hit_weights(scene, obs_k, acts, device=dev)
+    with plain_sweep():
+        w_p = distill.light_hit_weights(scene, obs_k, acts, device=dev)
+    weights_equal = bool(np.array_equal(w_k, w_p))
+    # One shooting launch at the main path's chunk (distill._chunked's
+    # 1 << 19 rows), the walk's observations and teacher actions tiled.
+    rows = 1 << 19
+    shoot_obs = np.resize(obs_k, (rows, obs_k.shape[1]))
+    shoot_acts = np.resize(acts, (rows, acts.shape[1]))
+    shots = []
+    calls += recorded_launches(
+        cuda_intersect, "nearest_hit", lambda: shots.append(
+            distill.light_hit_weights(scene, shoot_obs, shoot_acts,
+                                      device=dev)))
+    with plain_sweep():
+        shots_p = distill.light_hit_weights(scene, shoot_obs, shoot_acts,
+                                            device=dev)
+    weights_equal = weights_equal and bool(np.array_equal(shots[0], shots_p))
+    err, hits_equal = sweep_vs_plain(calls)
+    entry = sweep_entry("nearest_hit_distill", calls, err)
+    entry["launches"] = counts["nearest_hit"]
+
+    reset_counts()
+    stats = chandelier_comparison(
+        model_path=str(path), width=C_W, height=C_H, samples_per_pixel=SPP,
+        max_bounces=BOUNCES, impl="kernel", out_dir=out_dir / "distilled",
+        device=dev)
+    torch.cuda.synchronize()
+    c2 = launch_counts()
+    add_launches(launches, c2)
+    tp, fp = plain_sides(scene, str(path), C_W, C_H, cam, dev)
+    trad_equal, fb_ok = sides_match(stats, tp, fp)
+    emit({"phase": "distill", **card, "teacher": str(ckpt.relative_to(ROOT)),
+          "hidden": list(student.hidden), "observations": res.n_obs,
+          "observations_collected": res.n_obs // 2,
+          "seconds_by_stage": res.seconds, "steps": res.steps,
+          "steps_per_s": res.steps / res.seconds["train"],
+          "final_loss": res.final_loss, "launches": counts,
+          "walk_kernel_vs_plain_bit_equal": walk_equal,
+          "light_hit_weights_kernel_vs_plain_equal": weights_equal,
+          "light_hit_rows": int((w_k > 1).sum()),
+          "sweep_found_idx_equal_plain": hits_equal,
+          "walk_sweep": entry, "student_comparison": stats,
+          "student_comparison_launches": c2,
+          "student_traditional_plain_counts": tp,
+          "student_traditional_equal_plain": trad_equal,
+          "student_fb_plain_counts": fp,
+          "student_fb_within_bounds_of_plain": fb_ok,
+          "seconds": time.perf_counter() - t0})
+    check(np.isfinite(res.final_loss) and res.steps > 0,
+          f"distill: loss {res.final_loss}, {res.steps} steps")
+    check(counts["nearest_hit"] >= 2 * 4 * BOUNCES,
+          f"distill: {counts['nearest_hit']} nearest_hit launches")
+    check(walk_equal, "distill: the walk with the kernel sweep != plain")
+    check(weights_equal, "distill: light_hit_weights kernel != plain")
+    check(hits_equal, "distill: the sweep's found or idx != plain's")
+    check(c2["path_trace"]["bf16_mma"] == 2,
+          f"distill: the student took no tensor-core launch: {c2}")
+    check(trad_equal, f"distill: traditional counts {stats['traditional']} "
+          f"!= plain {tp}")
+    check(fb_ok, f"distill: the student's counts {stats['fb']} outside the "
+          f"bounds of plain {fp}")
+    return entry
+
+
+def output5_phase(dev, card, out_dir, launches):
+    """Phase output5: trace_output5 for the three methods at the
+    experiment's fast_mode grid (201x201, 3 bounces), the kernel sweep
+    against the plain sweep on the same planes (equal image and stats),
+    frame ms; then CustomSceneExperiment("fast_mode") end to end.  Returns
+    the sweep's ``kernels`` entry (one traditional frame's launches)."""
+    t0 = time.perf_counter()
+    cfg = CONFIG_MODES[O5_MODE]
+    scene, _, _, _ = library.custom_scene(device=dev)
+    o, d, h, w = grid_rays(100, 0.01, cfg["multiple"], origin=(0, 0, 1),
+                           device=dev)
+    L = cfg["max_bounces"]
+    methods, counts, entry = {}, {}, None
+    for method in O5_METHODS:
+        u, g = draw_planes(method, L, o.shape[0],
+                           torch.Generator(dev).manual_seed(SEED + 63), dev)
+        kw = dict(max_bounces=L, method=method, uniforms=u,
+                  glass_uniforms=g)
+        reset_counts()
+        rk, sk = trace_output5(scene, o, d, impl="kernel", **kw)
+        torch.cuda.synchronize()
+        counts[method] = launch_counts()
+        add_launches(launches, counts[method])
+        rp, sp = trace_output5(scene, o, d, impl="plain", **kw)
+        sk = {k: float(v) for k, v in sk.items()}
+        sp = {k: float(v) for k, v in sp.items()}
+        equal = bool(torch.equal(rk, rp)) and sk == sp
+        ms = cuda_ms(lambda: trace_output5(scene, o, d, impl="kernel", **kw),
+                     5)
+        plain_ms = cuda_ms(lambda: trace_output5(scene, o, d, impl="plain",
+                                                 **kw), 2)
+        methods[method] = {"stats": sk, "kernel_vs_plain_bit_equal": equal,
+                           "frame_ms": ms, "plain_sweep_frame_ms": plain_ms,
+                           "finite": bool(torch.isfinite(rk).all())}
+        check(equal and methods[method]["finite"],
+              f"output5 {method}: kernel sweep != plain sweep ({sk}, {sp})")
+        check(counts[method]["nearest_hit"] == L,
+              f"output5 {method}: launches {counts[method]}")
+        if entry is None:
+            calls = recorded_launches(
+                cuda_intersect, "nearest_hit",
+                lambda: trace_output5(scene, o, d, impl="kernel", **kw))
+            err, hits_equal = sweep_vs_plain(calls)
+            check(hits_equal, f"output5 {method}: the sweep's found or idx "
+                  f"!= plain's")
+            entry = sweep_entry("nearest_hit_output5", calls, err)
+            entry["found_idx_equal_plain"] = hits_equal
+    exp_dir = out_dir / "experiment"
+    reset_counts()
+    t1 = time.perf_counter()
+    exp = CustomSceneExperiment(output_dir=exp_dir, mode=O5_MODE,
+                                device=dev)
+    results = exp.run_custom_scene_experiment()
+    exp_s = time.perf_counter() - t1
+    c_exp = launch_counts()
+    add_launches(launches, c_exp)
+    entry["launches"] = sum(c["nearest_hit"] for c in counts.values()) \
+        + c_exp["nearest_hit"]
+    grid = exp.output_dir / "unified_comparison.png"
+    emit({"phase": "output5", **card, "grid": f"{w}x{h}", "bounces": L,
+          "methods": methods, "launches": counts,
+          "experiment": {"mode": O5_MODE, "seconds": exp_s,
+                         "launches": c_exp,
+                         "results": json.loads(results.read_text()),
+                         "grid_png": grid.exists()},
+          "seconds": time.perf_counter() - t0})
+    check(c_exp["whitted_trace"] >= 1 and c_exp["nearest_hit"] > 0,
+          f"output5 experiment: launches {c_exp}")
+    check(grid.exists(), "output5 experiment: no unified_comparison.png")
+    return entry
+
+
 def level_edges_phase(dev):
     """Phase level_edges: on seeded scenes built to cross the shared level's
     rewrites (radii with T(r) != fl(r*r) and rays grazing them, lights whose
@@ -2153,14 +2634,35 @@ def main():
     trainer, ckpt, walk_kernel = fb_train_phase(dev, card, train_dir)
     fb_guide_dtypes_phase(dev, card, scene, params, trainer.config, ckpt)
 
-    emit({"kernels": [{
+    # The harness, the distillation and the output5 experiment: new routes
+    # through the kernels above, their launches summed by kernel.
+    out_dir = ROOT / "build" / "harness"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    new_routes = {}
+    compare_student_phase(dev, card, scene, params, out_dir, new_routes)
+    compare_complex_phase(dev, card, out_dir, new_routes)
+    compare_agent_phase(dev, card, scene, params, ckpt, out_dir, new_routes)
+    compare_chunked_phase(dev, card, scene, params, out_dir, new_routes)
+    distill_kernel = distill_phase(dev, card, scene, params, ckpt, out_dir,
+                                   new_routes)
+    output5_kernel = output5_phase(dev, card, out_dir, new_routes)
+    by_entry = {"path_trace": new_routes["path_trace"]["unguided"],
+                "path_trace_guided": new_routes["path_trace"]["bf16_mma"],
+                "path_level": new_routes["path_level"],
+                "whitted_trace": new_routes["whitted_trace"],
+                "nearest_hit": new_routes["nearest_hit"]}
+
+    kernels = [{
         "name": "path_trace", "route": "cuda",
         "source": "raytracer_tpu_torch/csrc/path_trace.cu",
         "replaces": "raytracer_tpu/core/pallas_path.py:213",
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
         "library_ms": None}] + whitted_kernels + guided_kernels
-        + [walk_kernel]})
+    for k in kernels:
+        k["launches_harness_distill_output5"] = by_entry[k["name"]]
+    emit({"kernels": kernels + [walk_kernel, distill_kernel,
+                                output5_kernel]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

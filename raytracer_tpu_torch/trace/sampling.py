@@ -1,6 +1,6 @@
 """Hemisphere sampling and tangent frames.
 
-Counterpart of ``raytracer_tpu/trace/sampling.py`` in two of its tangent
+Counterpart of ``raytracer_tpu/trace/sampling.py`` with its three tangent
 conventions, same op order as the JAX code:
 
 * ``renderer`` (FB/fb_vs_traditional_complex.py:355-360), the path
@@ -8,10 +8,11 @@ conventions, same op order as the JAX code:
   else ``cross((0, 0, 1), n) = (-ny, nx, 0)``;
 * ``trainer`` (FB/train_complex_only.py:82-90), the FB learner's walk:
   ``|n.z| > 0.999`` gives ``cross((1, 0, 0), n) = (0, -nz, ny)``, else
-  ``cross((0, 0, 1), n)``.
+  ``cross((0, 0, 1), n)``;
+* ``env`` (RL/ray_tracer_env.py:166-173), the output5 experiment's rl and
+  fb methods: ``trainer``'s rule at ``|n.z| > 0.9``.
 
-The bitangent is ``normalise(cross(n, t))`` in both.  The env convention
-belongs to the RL slice.
+The bitangent is ``normalise(cross(n, t))`` in all three.
 
 FB actions are ``(a₀, a₁) ∈ [-1, 1]²`` with θ = (a₀+1)π/4, φ = a₁π
 (``fb_action_to_direction``); ``direction_to_action`` is the inverse with
@@ -27,7 +28,7 @@ import torch
 
 from ..core import vec
 
-_THRESHOLD = {"renderer": 0.9, "trainer": 0.999}
+_THRESHOLD = {"renderer": 0.9, "trainer": 0.999, "env": 0.9}
 
 
 def _cross_c(ax, ay, az, bx, by, bz):

@@ -203,8 +203,8 @@ def guided(dev, card, scene, p):
         stages["kernel"].append(t)
         _, t = stage_ms(lambda: PathStats.from_counts(counts))
         stages["stats"].append(t)
-        _, t = stage_ms(lambda: path_renderer._assemble(
-            rgb, spp=SPP, height=H, width=W))
+        _, t = stage_ms(lambda: path_renderer._average(
+            rgb.reshape(SPP, H, W, 3).sum(dim=0), SPP))
         stages["assemble"].append(t)
         _, t = stage_ms(frame)
         stages["render_path"].append(t)
@@ -314,8 +314,8 @@ def main():
         stages["kernel"].append(t)
         _, t = stage_ms(lambda: PathStats.from_counts(counts))
         stages["stats"].append(t)
-        _, t = stage_ms(lambda: path_renderer._assemble(
-            rgb, spp=SPP, height=H, width=W))
+        _, t = stage_ms(lambda: path_renderer._average(
+            rgb.reshape(SPP, H, W, 3).sum(dim=0), SPP))
         stages["assemble"].append(t)
         _, t = stage_ms(frame)
         stages["render_path"].append(t)

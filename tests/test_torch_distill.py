@@ -123,7 +123,9 @@ def test_registry_table_and_choices():
         "fb_chandelier_distilled_2to1.npz"
     assert Path(registry.model_path_for("chandelier", 800, 600, d)).name == \
         "fb_chandelier_distilled.npz"
-    assert registry.model_path_for("complex", 800, 600, d) is None
+    assert Path(registry.model_path_for("complex", 800, 600, d)).name == \
+        "fb_complex_distilled.npz"
+    assert registry.model_path_for("cornell_box", 800, 600, d) is None
     assert registry.model_path_for("nowhere", 800, 600, d) is None
     assert registry.guide_for("nowhere", 800, 600, d) is None
     g = registry.guide_for("chandelier", 800, 600, d)

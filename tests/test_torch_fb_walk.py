@@ -99,7 +99,7 @@ def test_sampling_matches_jax():
     u = np.asarray(jax.random.uniform(k1, (512, 2), jnp.float32))
     act = np.asarray(jax.random.uniform(k2, (512, 2), jnp.float32,
                                         -1.0, 1.0))
-    for conv in ("trainer", "renderer"):
+    for conv in ("trainer", "renderer", "env"):
         want = np.asarray(jax_sampling.cosine_weighted(k1, jnp.asarray(n),
                                                        conv))
         got = sampling.cosine_weighted(_t(u), _t(n), conv).numpy()
@@ -129,7 +129,7 @@ def test_sampling_matches_jax():
     assert np.abs(to.numpy() - np.asarray(jo)).max() <= SAMPLE_TOL
     assert np.abs(tp.numpy() - np.asarray(jp)).max() <= 10 * SAMPLE_TOL
     with pytest.raises(ValueError, match="convention"):
-        sampling.tangent_frame_c(*_t(n).T, "env")
+        sampling.tangent_frame_c(*_t(n).T, "screen")
 
 
 def jax_walk_draws(key, W, N, T, start_bias, guided):

@@ -681,3 +681,86 @@ def test_stepwise_equals_hybrid_with_an_agent_on_card():
     torch.cuda.synchronize()
     assert torch.equal(s3, h3) and st3.as_dict() == sh3.as_dict()
     assert 0 < int(st3.fb_used) < int(s_st.fb_used)
+
+
+@pytest.mark.cuda
+def test_distill_shooting_kernel_equals_plain_on_card(monkeypatch):
+    """On the card: the distillation's observation walk and its shooting
+    (``light_hit_weights``, ``hindsight_aim_targets``) launch the
+    nearest-hit kernel and equal the same with ``nearest_hit_plain`` as
+    the sweep, bit for bit, under a narrow seeded agent's actions and
+    exact aims at the small lights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    from raytracer_tpu_torch.fb import distill
+    from raytracer_tpu_torch.trace.sampling import direction_to_action
+    dev = torch.device("cuda")
+    scene, _, _, p = chandelier_scene(device=dev)
+    agent = TrainedFBAgent(None, scene, small_light_indices(scene),
+                           p["camera_position"],
+                           config=FBConfig(z_dim=8, e_hidden_dim=32,
+                                           f_hidden_dim=32, b_hidden_dim=16),
+                           seed=1, device=dev)
+    guide = agent.as_guide_fn()
+    kw = dict(width=48, height=24, spp=2, frames=2, device=dev,
+              camera_position=p["camera_position"])
+
+    def run():
+        obs = distill.collect_observations(
+            scene, guide, generator=torch.Generator(dev).manual_seed(3),
+            **kw)
+        acts = np.clip(distill._chunked(guide, obs, dev), -1, 1)
+        small = small_light_indices(scene)
+        rows = np.arange(0, obs.shape[0], 3)
+        centre = scene.centre[torch.from_numpy(small[rows % len(small)])
+                              .to(dev)]
+        pt = torch.from_numpy(obs[rows, 0:3]).to(dev)
+        aim = (centre - pt) / (centre - pt).norm(dim=-1, keepdim=True)
+        acts[rows] = direction_to_action(
+            aim, torch.from_numpy(obs[rows, 6:9]).to(dev),
+            convention="renderer").cpu().numpy()
+        return (obs, distill.light_hit_weights(scene, obs, acts, device=dev),
+                *distill.hindsight_aim_targets(scene, obs, acts, device=dev))
+
+    before = cuda_intersect.nearest_hit.launches
+    k = run()
+    torch.cuda.synchronize()
+    assert cuda_intersect.nearest_hit.launches == before + 2 * 8 + 2
+    with monkeypatch.context() as m:
+        m.setattr(cuda_intersect, "nearest_hit",
+                  cuda_intersect.nearest_hit_plain)
+        pl = run()
+    assert cuda_intersect.nearest_hit.launches == before + 18
+    for a, b in zip(k, pl):
+        np.testing.assert_array_equal(a, b)
+    assert (k[1] == 19.0).sum() > 0 and k[0].shape[0] > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["traditional", "rl", "fb"])
+def test_output5_kernel_sweep_equals_plain_on_card(method):
+    """On the card: ``trace_output5`` with the nearest-hit kernel as each
+    level's sweep equals it with ``nearest_hit_plain``, image and stats,
+    on the same planes (the experiment's fast_mode grid, 3 bounces)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    from raytracer_tpu_torch.trace.output5_style import (draw_planes,
+                                                         trace_output5)
+    dev = torch.device("cuda")
+    scene, _, _, _ = library.custom_scene(device=dev)
+    o, d, _, _ = grid_rays(100, 0.01, 1, origin=(0, 0, 1), device=dev)
+    u, g = draw_planes(method, 3, o.shape[0],
+                       torch.Generator(dev).manual_seed(4), dev)
+    kw = dict(max_bounces=3, method=method, uniforms=u, glass_uniforms=g)
+    before = cuda_intersect.nearest_hit.launches
+    rk, sk = trace_output5(scene, o, d, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    assert cuda_intersect.nearest_hit.launches == before + 3
+    rp, sp = trace_output5(scene, o, d, impl="plain", **kw)
+    assert torch.equal(rk, rp)
+    assert {k: float(v) for k, v in sk.items()} == \
+        {k: float(v) for k, v in sp.items()}

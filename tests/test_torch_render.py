@@ -67,8 +67,8 @@ def test_assemble_equals_jax_op_by_op():
     with jax.enable_x64(False):
         s = jnp.sum(jnp.asarray(rgb).reshape(3, 4, 5, 3), axis=0)
         want = np.asarray(jnp.minimum(1.0, jnp.floor(s / 3) / 255.0))
-    got = path_renderer._assemble(torch.from_numpy(rgb), spp=3, height=4,
-                                  width=5)
+    got = path_renderer._average(
+        torch.from_numpy(rgb).reshape(3, 4, 5, 3).sum(dim=0), 3)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

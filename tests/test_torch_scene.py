@@ -31,6 +31,19 @@ def jax_scene_numpy(scene):
             for f in dataclasses.fields(scene)}
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """PyTorch on one CPU thread for a module's tests: the suite runs in
+    several xdist workers at once, and PyTorch's default of a thread a core
+    then oversubscribes the CPU, where its many small parallel regions wait
+    on descheduled threads (a harness pin of 1.2 s alone took 639 s in a
+    six-worker run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def port_scene(jax_scene):
     """The JAX scene's table as the port's CPU ``Scene``."""
     return scene_from_numpy(jax_scene_numpy(jax_scene), device="cpu")

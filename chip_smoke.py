@@ -47,6 +47,15 @@ just after:
 * the output5 experiment: trace_output5's three methods at the fast_mode
   grid (the nearest-hit kernel a level), then CustomSceneExperiment end to
   end (the Whitted kernel for true_original; phase output5).
+* the RL track at the shipped policies' configuration (the JAX CLI's
+  rl-pipeline env: training_scene_complete at 400x300, fov 75, 8 bounces,
+  2,048 episodes): the env through its kernel route (the Whitted kernel at
+  reset, the nearest-hit kernel a level of each step and in its shadow
+  sweeps) against its plain route (phase rl_env); the shipped PPO and SAC
+  through evaluate_policy and compare_rl_vs_random (rl_eval); PPO
+  iterations at the shipped config and SAC updates on the card's ring
+  buffer, the first updates held against float64 (rl_train); render_guided
+  at 400x300@1spp, 5 bounces, three Whitted launches a bounce (rl_render).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -60,6 +69,7 @@ line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA
 device it exits 1 and prints no result.
 """
+import copy
 import json
 import shutil
 import subprocess
@@ -71,8 +81,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.agents import SHIPPED_DIR
+from raytracer_tpu_torch.agents.ppo import (PPOConfig, PPOTrainer,
+                                            clip_by_global_norm_)
+from raytracer_tpu_torch.agents.sac import SACConfig, SACTrainer
+from raytracer_tpu_torch.compare import rl_renderer
+from raytracer_tpu_torch.compare.workbench import (compare_rl_vs_random,
+                                                   evaluate_policy,
+                                                   load_policy,
+                                                   random_actions)
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted, native, vec)
+from raytracer_tpu_torch.env.raytracer_env import RayTracerEnv
+from raytracer_tpu_torch.env.scenes import training_scene_complete
 from raytracer_tpu_torch.compare.experiment import (CONFIG_MODES,
                                                     CustomSceneExperiment)
 from raytracer_tpu_torch.compare.harness import (chandelier_comparison,
@@ -247,6 +268,23 @@ C_CHUNK = 2
 C_COUNTS = ("total_rays", "total_intersections", "light_hits",
             "small_light_hits")
 O5_MODE = "fast_mode"
+# The RL track at the shipped policies' configuration (the JAX CLI's
+# rl-pipeline env, raytracer_tpu/cli.py:466-469): training_scene_complete
+# at 400x300, fov 75, 8 bounces, variant "rl", 2,048 episodes of
+# max_bounces + 2 steps; PPO at the shipped __config__ (128x128, 512
+# envs, ent_coef 0.01), SAC at 256x256, 128 envs, batch 256.  The shipped
+# light-hit rates, the TPU's evaluation at 2,048 episodes
+# (models/ppo_raytracer_benchmark.json; models/ is not on the card's
+# copy), each held to 4 binomial standard deviations at 2,048 episodes; the
+# shipped SAC to the JAX package's own pin (tests/test_trained_models.py:
+# its light hits above random's x 1.05, its reward above random's x 1.5).
+# The renderer at its defaults, 400x300@1spp, 5 bounces.
+RL_W, RL_H, RL_FOV, RL_BOUNCES, RL_EPISODES = 400, 300, 75, 8, 2048
+RL_PPO_HITS, RL_RANDOM_HITS = 0.14404296875, 0.0966796875
+RL_SIGMAS = 4.0
+RL_PPO_ITERS, RL_SAC_ITERS, RL_SAC_UPDATES = 3, 4, 64
+RL_RENDER_BOUNCES = 5
+
 # level_edges: seeded scenes on the edges of the level's exact rewrites
 # (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
 EDGE_SEEDS = (SEED + 20, SEED + 21, SEED + 22)
@@ -334,6 +372,16 @@ def sweep_ops(work):
            + OPS_SPHERE_FRONT * work["front_sphere_tests"]
            + OPS_SPHERE_VALID * work["valid_sphere_tests"])
     return ops, W_OPS_SWEEP_PER_SPHERE * work["sphere_tests"]
+
+
+def whitted_rest_ops(work, rays):
+    """f32 operations of the Whitted kernel beyond its sweeps, over
+    ``whitted_trace_plain``'s ``counters``."""
+    return (W_OPS_PER_RAY * rays + W_OPS_LEVEL * work["levels"]
+            + W_OPS_MIRROR * work["mirror"]
+            + W_OPS_GLASS_ENTRY * work["glass"]
+            + W_OPS_WALK_STEP * work["walk_steps"]
+            + W_OPS_WALK_REFLECT * (work["walk_steps"] - work["walk_exits"]))
 
 
 def nearest_hit_modes(o, d, sup, table):
@@ -551,12 +599,7 @@ def whitted_phases(dev, card):
     cuda_whitted.whitted_trace_plain(o, d, None, table, max_bounces=mb,
                                      counters=work)
     w_sweep, w_sweep_every = sweep_ops(work)
-    w_rest = (W_OPS_PER_RAY * R + W_OPS_LEVEL * work["levels"]
-              + W_OPS_MIRROR * work["mirror"]
-              + W_OPS_GLASS_ENTRY * work["glass"]
-              + W_OPS_WALK_STEP * work["walk_steps"]
-              + W_OPS_WALK_REFLECT * (work["walk_steps"]
-                                      - work["walk_exits"]))
+    w_rest = whitted_rest_ops(work, R)
     w_ops = w_sweep + w_rest
     w_bytes = (W_BYTES_IN + W_BYTES_OUT) * R
     w_bound, w_by = bound(w_ops, w_bytes)
@@ -2350,6 +2393,425 @@ def output5_phase(dev, card, out_dir, launches):
     return entry
 
 
+def whitted_entry(name, calls, err):
+    """A ``kernels`` entry for the Whitted-kernel launches ``calls`` (as
+    ``recorded_launches`` returns them), replayed: device ms queued behind
+    a spin kernel, the plain version's ms, the bound from the work the
+    plain version counts on these rays."""
+    def replay(fn=None):
+        for args, kw, _ in calls:
+            (fn or cuda_whitted.whitted_trace)(*args, **kw)
+
+    dev_ms = queued_ms(replay)
+    plain_ms = cuda_ms(lambda: replay(cuda_whitted.whitted_trace_plain), 2)
+    ops = nbytes = 0
+    for (o, d, sup, table), kw, _ in calls:
+        work = {}
+        cuda_whitted.whitted_trace_plain(o, d, sup, table, counters=work,
+                                         **kw)
+        ops += sweep_ops(work)[0] + whitted_rest_ops(work, o.shape[0])
+        nbytes += (W_BYTES_IN + (0 if sup is None else W_BYTES_SUPPRESS)
+                   + W_BYTES_OUT) * o.shape[0]
+    b_ms, b_by = bound(ops, nbytes)
+    return {"name": name, "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/whitted_trace.cu",
+            "replaces": "raytracer_tpu/core/pallas_whitted.py:110",
+            "launches_timed": len(calls), "max_abs_err": err, "ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ops": ops, "bound_bytes": nbytes, "library_ms": None}
+
+
+def whitted_vs_plain(calls):
+    """The recorded Whitted-kernel ``calls`` against the plain version on
+    the same arguments: ``(bit_equal, max |float diff|)``."""
+    equal, err = True, 0.0
+    for args, kw, res in calls:
+        eq, e, _ = compare_traces(res, cuda_whitted.whitted_trace_plain(
+            *args, **kw))
+        equal, err = equal and eq, max(err, e)
+    return equal, err
+
+
+def nearest_hit_calls(fn):
+    """``fn()`` with every nearest-hit launch recorded, from the Whitted
+    level loop (``cuda_whitted``'s binding) and from shading
+    (``cuda_intersect``'s)."""
+    inner = []
+
+    def shading_recorded():
+        inner.extend(recorded_launches(cuda_intersect, "nearest_hit", fn))
+
+    return recorded_launches(cuda_whitted, "nearest_hit",
+                             shading_recorded) + inner
+
+
+def rl_env(impl, dev):
+    scene, gl, pl = training_scene_complete(device=dev)
+    return RayTracerEnv(scene, image_width=RL_W, image_height=RL_H,
+                        fov=RL_FOV, max_bounces=RL_BOUNCES, global_lights=gl,
+                        point_lights=pl, variant="rl", impl=impl)
+
+
+def rl_env_phase(dev, card, launches):
+    """Phase rl_env: 2,048 episodes of the RL env at the shipped
+    configuration through the kernel route (the Whitted kernel at reset,
+    the nearest-hit kernel a level and in the shadow sweeps) and through
+    the plain route on the same draws: obs, rewards, done flags and totals
+    bit for bit.  Returns the ``kernels`` entries of the reset's Whitted
+    launch and of one step's nearest-hit launches."""
+    t0 = time.perf_counter()
+    env_k, env_p = rl_env("kernel", dev), rl_env("plain", dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 70)
+    pixel = env_k.draw_pixels(RL_EPISODES, gen)
+    acts = random_actions(env_k, RL_EPISODES, gen)
+
+    def episodes(env):
+        s, o = env.reset(RL_EPISODES, pixel=pixel)
+        outs, steps = [o], []
+        for a in acts:
+            t1 = time.perf_counter()
+            s, o, r, term, info = env.step(s, a)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t1) * 1e3)
+            outs += [o, r, term, info["truncated"], s.total_reward]
+        return outs, steps
+
+    episodes(env_k)                                  # warm-up
+    reset_counts()
+    t1 = time.perf_counter()
+    outs_k, step_ms = episodes(env_k)
+    wall_k = time.perf_counter() - t1
+    counts = launch_counts()
+    add_launches(launches, counts)
+    t1 = time.perf_counter()
+    outs_p, plain_step_ms = episodes(env_p)
+    wall_p = time.perf_counter() - t1
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(outs_k, outs_p))
+    steps = len(acts)
+    # The kernels on this route, recorded and replayed: the reset's one
+    # Whitted launch and the first step's nearest-hit launches.
+    w_calls = recorded_launches(cuda_whitted, "whitted_trace",
+                                lambda: env_k.reset(RL_EPISODES,
+                                                    pixel=pixel))
+    w_equal, w_err = whitted_vs_plain(w_calls)
+    s0, _ = env_k.reset(RL_EPISODES, pixel=pixel)
+    nh_calls = nearest_hit_calls(lambda: env_k.step(s0, acts[0]))
+    nh_err, nh_equal = sweep_vs_plain(nh_calls)
+    w_entry = whitted_entry("whitted_trace_rl_reset", w_calls, w_err)
+    nh_entry = sweep_entry("nearest_hit_rl_step", nh_calls, nh_err)
+    w_entry["launches"] = counts["whitted_trace"]
+    nh_entry["launches"] = counts["nearest_hit"]
+    nh_entry["step_wall_ms"] = step_ms[0]
+    emit({"phase": "rl_env", **card,
+          "env": f"training_scene_complete {RL_W}x{RL_H} fov {RL_FOV}, "
+                 f"{RL_BOUNCES} bounces, rl",
+          "episodes": RL_EPISODES, "steps": steps,
+          "kernel_vs_plain_bit_equal": equal, "launches": counts,
+          "reset_whitted_bit_equal": w_equal,
+          "step_sweeps_found_idx_equal": nh_equal,
+          "kernel_wall_s": wall_k, "plain_wall_s": wall_p,
+          "kernel_step_wall_ms": step_ms, "plain_step_wall_ms": plain_step_ms,
+          "episode_steps_per_s": RL_EPISODES * steps / wall_k,
+          "total_reward_mean": float(outs_k[-1].mean()),
+          "seconds": time.perf_counter() - t0})
+    check(equal, "rl_env: the kernel route differs from the plain route")
+    check(w_equal and nh_equal, "rl_env: a recorded kernel call differs "
+          "from its plain version")
+    check(counts["whitted_trace"] == 1 and counts["nearest_hit"] >= steps,
+          f"rl_env: launches {counts}")
+    return [w_entry, nh_entry]
+
+
+def rl_eval_phase(dev, card, launches):
+    """Phase rl_eval: the shipped PPO (compare_rl_vs_random, 2,048
+    episodes a side) and the shipped SAC (evaluate_policy) through the
+    kernel route."""
+    t0 = time.perf_counter()
+    env = rl_env("kernel", dev)
+    ppo = load_policy(SHIPPED_DIR / "ppo_raytracer.npz", env)
+    sac = load_policy(SHIPPED_DIR / "sac_raytracer.npz", env, algo="sac")
+    reset_counts()
+    t1 = time.perf_counter()
+    cmp = compare_rl_vs_random(env, ppo.predict, episodes=RL_EPISODES,
+                               seed=SEED)
+    torch.cuda.synchronize()
+    ppo_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sac_res = evaluate_policy(env, sac.predict, episodes=RL_EPISODES,
+                              seed=SEED)
+    torch.cuda.synchronize()
+    sac_s = time.perf_counter() - t1
+    counts = launch_counts()
+    add_launches(launches, counts)
+    rl, rnd = cmp["rl"], cmp["random"]
+
+    def sigma(p):
+        return (p * (1 - p) / RL_EPISODES) ** 0.5
+
+    ppo_ok = abs(rl["light_hit_rate"] - RL_PPO_HITS) \
+        <= RL_SIGMAS * sigma(RL_PPO_HITS)
+    rnd_ok = abs(rnd["light_hit_rate"] - RL_RANDOM_HITS) \
+        <= RL_SIGMAS * sigma(RL_RANDOM_HITS)
+    emit({"phase": "rl_eval", **card, "episodes": RL_EPISODES,
+          "ppo": {"hidden": list(ppo.cfg.hidden),
+                  "light_hit_rate": rl["light_hit_rate"],
+                  "avg_reward": rl["avg_reward"],
+                  "avg_bounces": rl["avg_bounces"],
+                  "recorded_light_hit_rate": RL_PPO_HITS,
+                  "bound": RL_SIGMAS * sigma(RL_PPO_HITS),
+                  "within_bound": ppo_ok},
+          "random": {"light_hit_rate": rnd["light_hit_rate"],
+                     "avg_reward": rnd["avg_reward"],
+                     "avg_bounces": rnd["avg_bounces"],
+                     "recorded_light_hit_rate": RL_RANDOM_HITS,
+                     "bound": RL_SIGMAS * sigma(RL_RANDOM_HITS),
+                     "within_bound": rnd_ok},
+          "rays_per_light_hit": cmp["rays_per_light_hit"],
+          "sac": {"hidden": list(sac.cfg.hidden),
+                  "light_hit_rate": sac_res["light_hit_rate"],
+                  "avg_reward": sac_res["avg_reward"],
+                  "avg_bounces": sac_res["avg_bounces"]},
+          "ppo_and_random_s": ppo_s, "sac_s": sac_s, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    check(ppo_ok and rnd_ok, "rl_eval: a light-hit rate outside 4 sigma "
+          "of its recorded value")
+    check(rl["light_hit_rate"] > rnd["light_hit_rate"],
+          "rl_eval: the shipped PPO does not beat random actions")
+    check(sac_res["light_hit_rate"] > rnd["light_hit_rate"] * 1.05
+          and sac_res["avg_reward"] > rnd["avg_reward"] * 1.5,
+          "rl_eval: the shipped SAC misses the JAX package's pin")
+
+
+def f64_adam_step(params0, grads, lr):
+    """One Adam step (optax's settings) in float64 on the CPU from
+    ``params0`` with ``grads``."""
+    ref = [p.detach().to("cpu", torch.float64).requires_grad_(True)
+           for p in params0]
+    for r, g in zip(ref, grads):
+        r.grad = g.detach().to("cpu", torch.float64)
+    torch.optim.Adam(ref, lr=lr, betas=(0.9, 0.999), eps=1e-8).step()
+    return [r.detach() for r in ref]
+
+
+def step_ulps(got, want, lr):
+    eps32 = torch.finfo(torch.float32).eps
+    return max(float(((g.detach().to("cpu", torch.float64) - w).abs()
+                      / (eps32 * w.abs() + T_STEP_LR * lr)).max())
+               for g, w in zip(got, want))
+
+
+def grad_vs(got, want):
+    """Largest over leaves of max|got - want| over max|want|."""
+    return max(float((g.detach().to("cpu", torch.float64) - w).abs().max())
+               / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def f64_module(module):
+    return copy.deepcopy(module).to("cpu", torch.float64)
+
+
+def rl_train_phase(dev, card, launches):
+    """Phase rl_train: PPO at the shipped configuration from its seeded
+    weights, the first minibatch's gradient against float64's on the CPU
+    and the card's Adam step (after optax's clip) against the same step in
+    float64, then RL_PPO_ITERS iterations (ms a rollout, ms an update);
+    SAC from the shipped weights, the first update's critic and actor
+    gradients against float64's (the card's target and noise) and its
+    Adam steps against float64's, then RL_SAC_ITERS iterations of the
+    device ring buffer with RL_SAC_UPDATES updates each."""
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "rl_train: TF32 matmuls are on")
+    env = rl_env("kernel", dev)
+    cpu = torch.device("cpu")
+    report, failures = {}, []
+    reset_counts()
+    # PPO: the first minibatch held against float64.
+    ppo = PPOTrainer(env, PPOConfig(hidden=(128, 128), batch_envs=512,
+                                    ent_coef=0.01), seed=SEED)
+    recs, last, _ = ppo.rollout(*ppo.rollout_draws())
+    data = ppo.prepare(recs, last)
+    perm = ppo.update_draws()[0]
+    mbatch = tuple(x[perm[:data[0].shape[0] // ppo.cfg.minibatches]]
+                   for x in data)
+    params = list(ppo.net.parameters())
+    p0 = [p.detach().clone() for p in params]
+    ppo.opt.zero_grad(set_to_none=True)
+    loss, _ = ppo.loss(mbatch)
+    loss.backward()
+    g_card = [p.grad.detach().clone() for p in params]
+    net64 = f64_module(ppo.net)
+    ppo64 = PPOTrainer.__new__(PPOTrainer)
+    ppo64.net, ppo64.cfg = net64, ppo.cfg
+    loss64, _ = PPOTrainer.loss(ppo64, tuple(
+        x.to(cpu, torch.float64) for x in mbatch))
+    loss64.backward()
+    clip_by_global_norm_(params, ppo.cfg.max_grad_norm)
+    ppo.opt.step()
+    want = f64_adam_step(p0, [p.grad for p in params], ppo.cfg.learning_rate)
+    report["ppo"] = {
+        "loss_rel_err": abs(float(loss.detach()) - float(loss64.detach()))
+        / max(abs(float(loss64.detach())), 1e-3),
+        "grad_vs_f64": grad_vs(g_card, [p.grad for p in
+                                        net64.parameters()]),
+        "adam_step_vs_f64_in_ulps": step_ulps(params, want,
+                                              ppo.cfg.learning_rate)}
+    # PPO iterations, timed by part.
+    rollout_ms, update_ms = [], []
+    for _ in range(RL_PPO_ITERS):
+        t1 = time.perf_counter()
+        recs, last, ep = ppo.rollout(*ppo.rollout_draws())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss_i = ppo.update(recs, last, ppo.update_draws())
+        torch.cuda.synchronize()
+        rollout_ms.append((t2 - t1) * 1e3)
+        update_ms.append((time.perf_counter() - t2) * 1e3)
+    report["ppo"].update(rollout_ms=rollout_ms, update_ms=update_ms,
+                         iteration_ms=[a + b for a, b in
+                                       zip(rollout_ms, update_ms)],
+                         final_loss=loss_i, mean_episode_reward=float(
+                             ep.mean()))
+
+    # SAC: the first update held against float64.
+    sac = SACTrainer(env, SACConfig(batch_envs=128, batch_size=256,
+                                    learning_starts=0), seed=SEED)
+    sac.load(SHIPPED_DIR / "sac_raytracer.npz")
+    flat, _ = sac._ring_rollout(explore=False)
+    idx = torch.randint(0, flat[0].shape[0], (sac.cfg.batch_size,),
+                        generator=sac.generator, device=dev)
+    batch = tuple(x[idx] for x in flat[:5])
+    n1, n2 = sac.update_draws(sac.cfg.batch_size)
+    obs, action, reward, next_obs, done = batch
+    alpha = torch.exp(sac.log_alpha.detach())
+    with torch.no_grad():
+        na, nlp = sac.sample_action(next_obs, n1)
+        tq1, tq2 = sac.target_critic(next_obs, na)
+        target = reward + sac.cfg.gamma * (1 - done) * (
+            torch.minimum(tq1, tq2) - alpha * nlp)
+    a0 = [p.detach().clone() for p in sac.actor.parameters()]
+    c0 = [p.detach().clone() for p in sac.critic.parameters()]
+    critic64, actor64 = f64_module(sac.critic), f64_module(sac.actor)
+    sac.update(batch, n1, n2)
+    lr = sac.cfg.learning_rate
+    b64 = [x.to(cpu, torch.float64) for x in batch]
+    q1, q2 = critic64(b64[0], b64[1])
+    t64 = target.to(cpu, torch.float64)
+    ((q1 - t64) ** 2 + (q2 - t64) ** 2).mean().backward()
+    critic1_64 = f64_module(sac.critic)              # the updated critic
+    sac64 = SACTrainer.__new__(SACTrainer)
+    sac64.actor = actor64
+    sac64.mid = sac.mid.to(cpu, torch.float64)
+    sac64.scale = sac.scale.to(cpu, torch.float64)
+    a, logp = sac64.sample_action(b64[0], n2.to(cpu, torch.float64))
+    q1, q2 = critic1_64(b64[0], a)
+    (alpha.to(cpu, torch.float64) * logp
+     - torch.minimum(q1, q2)).mean().backward()
+    report["sac"] = {
+        "critic_grad_vs_f64": grad_vs(
+            [p.grad for p in sac.critic.parameters()],
+            [p.grad for p in critic64.parameters()]),
+        "actor_grad_vs_f64": grad_vs(
+            [p.grad for p in sac.actor.parameters()],
+            [p.grad for p in actor64.parameters()]),
+        "critic_adam_step_vs_f64_in_ulps": step_ulps(
+            list(sac.critic.parameters()), f64_adam_step(
+                c0, [p.grad for p in sac.critic.parameters()], lr), lr),
+        "actor_adam_step_vs_f64_in_ulps": step_ulps(
+            list(sac.actor.parameters()), f64_adam_step(
+                a0, [p.grad for p in sac.actor.parameters()], lr), lr)}
+    # SAC with the ring buffer on the card, and one update's time.
+    out = sac.train_on_device(
+        RL_SAC_ITERS * (RL_BOUNCES + 2) * sac.cfg.batch_envs,
+        iters_per_dispatch=RL_SAC_ITERS, updates_per_rollout=RL_SAC_UPDATES)
+    sac_batch = (*batch, torch.ones_like(batch[2]))
+    update_ms = cuda_ms(lambda: sac.update(
+        sac_batch, *sac.update_draws(sac.cfg.batch_size), weighted=True), 20)
+    report["sac"].update(train_on_device=out, update_ms=update_ms,
+                         updates=RL_SAC_ITERS * RL_SAC_UPDATES + 1)
+    counts = launch_counts()
+    add_launches(launches, counts)
+    for algo, keys in (("ppo", ("grad_vs_f64",)),
+                       ("sac", ("critic_grad_vs_f64", "actor_grad_vs_f64"))):
+        for k in keys:
+            if report[algo][k] > T_GRAD_TOL:
+                failures.append(f"{algo} {k}")
+        for k, v in report[algo].items():
+            if k.endswith("in_ulps") and v > T_STEP_ULPS:
+                failures.append(f"{algo} {k}")
+    if report["ppo"]["loss_rel_err"] > T_LOSS_TOL:
+        failures.append("ppo loss vs float64")
+    emit({"phase": "rl_train", **card, "launches": counts, **report,
+          "bounds": {"grad": T_GRAD_TOL, "adam_step_ulps": T_STEP_ULPS,
+                     "loss": T_LOSS_TOL},
+          "seconds": time.perf_counter() - t0})
+    check(not failures, f"rl_train: {failures}")
+    check(np.isfinite(out["critic_loss"]) and out["total_steps"] > 0,
+          f"rl_train: SAC on the card {out}")
+
+
+def rl_render_phase(dev, card, launches):
+    """Phase rl_render: render_guided at 400x300@1spp, 5 bounces, with the
+    shipped PPO and with uniform draws, through the Whitted kernel (three
+    launches a bounce) and the plain route: the images bit for bit.
+    Returns the ``kernels`` entry of a uniform frame's Whitted launches."""
+    t0 = time.perf_counter()
+    scene = rl_renderer.create_test_scene(dev)
+    env = RayTracerEnv(scene, image_width=RL_W, image_height=RL_H, fov=90,
+                       max_bounces=RL_RENDER_BOUNCES, variant="rl")
+    ppo = load_policy(SHIPPED_DIR / "ppo_raytracer.npz", env)
+    u = rl_renderer.draw_uniforms(1, RL_RENDER_BOUNCES, RL_W * RL_H,
+                                  torch.Generator(dev).manual_seed(SEED + 80),
+                                  dev)
+    kw = dict(width=RL_W, height=RL_H, max_bounces=RL_RENDER_BOUNCES)
+    sides, entry = {}, None
+    for name, policy, planes in (("ppo", ppo.predict, None),
+                                 ("uniform", None, u)):
+        def frame(impl, policy=policy, planes=planes):
+            return rl_renderer.render_guided(scene, policy, planes,
+                                             impl=impl, **kw)
+        frame("kernel")
+        reset_counts()
+        img_k = frame("kernel")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add_launches(launches, counts)
+        img_p = frame("plain")
+        walls = []
+        for impl in ("kernel", "plain", "kernel"):
+            t1 = time.perf_counter()
+            frame(impl)
+            torch.cuda.synchronize()
+            walls.append(((time.perf_counter() - t1) * 1e3, impl))
+        sides[name] = {
+            "bit_equal": bool(torch.equal(img_k, img_p)),
+            "launches": counts,
+            "frame_ms": min(w for w, i in walls if i == "kernel"),
+            "plain_frame_ms": min(w for w, i in walls if i == "plain"),
+            "mean_pixel": float(img_k.mean()),
+            "finite": bool(torch.isfinite(img_k).all())}
+        if planes is not None:
+            calls = recorded_launches(cuda_whitted, "whitted_trace",
+                                      lambda: frame("kernel"))
+            w_equal, w_err = whitted_vs_plain(calls)
+            entry = whitted_entry("whitted_trace_rl_render", calls, w_err)
+            sides[name]["recorded_calls_bit_equal"] = w_equal
+    entry["launches"] = sum(v["launches"]["whitted_trace"]
+                            for v in sides.values())
+    emit({"phase": "rl_render", **card,
+          "frame": f"{RL_W}x{RL_H}@1spp/{RL_RENDER_BOUNCES}", **sides,
+          "seconds": time.perf_counter() - t0})
+    for name, v in sides.items():
+        check(v["bit_equal"] and v["finite"],
+              f"rl_render {name}: kernel image != plain image")
+        check(v["launches"]["whitted_trace"] >= 3,
+              f"rl_render {name}: launches {v['launches']}")
+    check(sides["uniform"]["recorded_calls_bit_equal"],
+          "rl_render: a recorded Whitted call differs from plain")
+    return entry
+
+
 def level_edges_phase(dev):
     """Phase level_edges: on seeded scenes built to cross the shared level's
     rewrites (radii with T(r) != fl(r*r) and rays grazing them, lights whose
@@ -2646,6 +3108,15 @@ def main():
     distill_kernel = distill_phase(dev, card, scene, params, ckpt, out_dir,
                                    new_routes)
     output5_kernel = output5_phase(dev, card, out_dir, new_routes)
+    # The RL track: its routes through the Whitted and nearest-hit kernels.
+    t_rl = time.perf_counter()
+    rl_routes = {}
+    rl_env_kernels = rl_env_phase(dev, card, rl_routes)
+    rl_eval_phase(dev, card, rl_routes)
+    rl_train_phase(dev, card, rl_routes)
+    rl_render_kernel = rl_render_phase(dev, card, rl_routes)
+    emit({"phase": "rl_total", "launches": rl_routes,
+          "seconds": time.perf_counter() - t_rl})
     by_entry = {"path_trace": new_routes["path_trace"]["unguided"],
                 "path_trace_guided": new_routes["path_trace"]["bf16_mma"],
                 "path_level": new_routes["path_level"],
@@ -2661,8 +3132,11 @@ def main():
         "library_ms": None}] + whitted_kernels + guided_kernels
     for k in kernels:
         k["launches_harness_distill_output5"] = by_entry[k["name"]]
+        if k["name"] in ("whitted_trace", "nearest_hit"):
+            k["launches_rl"] = rl_routes[k["name"]]
     emit({"kernels": kernels + [walk_kernel, distill_kernel,
-                                output5_kernel]})
+                                output5_kernel] + rl_env_kernels
+          + [rl_render_kernel]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,6 +4,11 @@ arguments and defaults, plus ``--device`` (``cuda`` by default; ``cpu``
 runs the plain PyTorch versions).
 
     raytracer-tpu-torch render --scene true_original
+    raytracer-tpu-torch train-ppo --timesteps 50000
+    raytracer-tpu-torch train-sac --timesteps 50000
+    raytracer-tpu-torch train-q --episodes 1000
+    raytracer-tpu-torch demo
+    raytracer-tpu-torch rl-pipeline --algo ppo|sac  (train, evaluate, bench)
     raytracer-tpu-torch train-fb [--quick] [--scenes N]
     raytracer-tpu-torch train-fb-chandelier [--quick] [--scenes N]
     raytracer-tpu-torch train-fb-complex [--quick] [--scenes N]
@@ -13,9 +18,11 @@ runs the plain PyTorch versions).
 
 (also ``python -m raytracer_tpu_torch.cli ...``).  ``compare-*
 --spp-chunk N`` renders both sides in chunks of N samples through
-impl ``"kernel"``.  The JAX CLI's ``animate``, ``train-ppo``,
-``train-sac``, ``train-q``, ``demo``, ``interactive`` and ``rl-pipeline``
-are not ported yet (ROADMAP.md).
+impl ``"kernel"``.  ``train-* --analyze`` prints the behaviour statistics
+and writes their CSV; the JAX CLI's figure beside them is not ported (the
+card's machine has no matplotlib), and ``rl-pipeline --cpu`` is
+``--device cpu``.  The JAX CLI's ``animate`` and ``interactive`` are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -62,6 +69,130 @@ def cmd_render(args):
     save_image(args.out, arr)
     print(f"rendered {w}x{h} in {dt:.2f}s -> {args.out} "
           f"({h * w / dt / 1e6:.2f} Mrays/s, {dev})")
+
+
+def _make_rl_env(device, variant="rl", max_bounces=5):
+    """The JAX CLI's training env: ``training_scene_v1`` at 800x600."""
+    from .env.raytracer_env import RayTracerEnv
+    from .env.scenes import training_scene_v1
+    scene, gl, pl = training_scene_v1(device=device)
+    return RayTracerEnv(scene, image_width=800, image_height=600, fov=90,
+                        max_bounces=max_bounces, global_lights=gl,
+                        point_lights=pl, variant=variant)
+
+
+def _train(args, trainer_cls, config_cls, prefix):
+    from .core.device import resolve_device
+    env = _make_rl_env(resolve_device(args.device))
+    tr = trainer_cls(env, config_cls(learning_rate=args.lr,
+                                     tensorboard_log=args.tensorboard_log),
+                     seed=args.seed)
+    out = tr.train(args.timesteps)
+    print(json.dumps(out))
+    tr.save(args.out)
+    print(f"saved -> {args.out}")
+    if args.analyze:
+        _post_training_analysis(env, tr, prefix)
+
+
+def cmd_train_ppo(args):
+    from .agents.ppo import PPOConfig, PPOTrainer
+    _train(args, PPOTrainer, PPOConfig, "ppo_analysis")
+
+
+def cmd_train_sac(args):
+    from .agents.sac import SACConfig, SACTrainer
+    _train(args, SACTrainer, SACConfig, "sac_analysis")
+
+
+def _post_training_analysis(env, trainer, prefix):
+    """Behaviour statistics and their CSV (RL/train_raytracer_improved.py:
+    349-507); the six-panel figure is not ported."""
+    from .agents.analytics import analyze_agent_behavior
+    from .utils.metrics import write_csv
+    behavior = analyze_agent_behavior(env, trainer.predict, episodes=200)
+    print(json.dumps(behavior, indent=2, default=str))
+    write_csv(f"{prefix}.csv",
+              [{"metric": k, "value": json.dumps(v, default=str)}
+               for k, v in behavior.items()])
+    print(f"analysis -> {prefix}.csv ({prefix}.png, the figure, is not "
+          f"ported: no matplotlib on the card's machine)")
+
+
+def cmd_train_q(args):
+    from .agents.tabular_q import TabularQConfig, TabularQTrainer
+    from .core.device import resolve_device
+    env = _make_rl_env(resolve_device(args.device), max_bounces=5)
+    tr = TabularQTrainer(env, TabularQConfig(), seed=args.seed)
+    hist = tr.train(num_episodes=args.episodes)
+    print(f"episodes={len(hist)} avg_reward_last_100="
+          f"{sum(hist[-100:]) / max(1, len(hist[-100:])):.3f} "
+          f"test={tr.test():.3f}")
+
+
+def cmd_demo(args):
+    """A scripted episode, step by step (the textual form of the
+    reference's demos, RL/train_raytracer.py:232-297)."""
+    import numpy as np
+    import torch
+
+    from .core.device import resolve_device
+    dev = resolve_device(args.device)
+    env = _make_rl_env(dev)
+    state, obs = env.reset(1, generator=torch.Generator(dev).manual_seed(
+        args.seed))
+    print(f"pixel={tuple(int(v) for v in state.pixel[0])} "
+          f"hit={bool(state.hit[0])}")
+    rng = np.random.default_rng(args.seed)
+    for step in range(env.max_bounces + 1):
+        a = np.asarray([[rng.uniform(0, np.pi / 2),
+                         rng.uniform(0, 2 * np.pi)]], np.float32)
+        state, obs, r, term, info = env.step(state, a)
+        print(f"step {step}: action=({a[0, 0]:.2f},{a[0, 1]:.2f})"
+              f" reward={float(r[0]):+.3f} bounce={int(info['bounce'][0])}"
+              f" done={bool(term[0])}")
+        if bool(term[0]):
+            break
+    print(f"total reward: {float(state.total_reward[0]):+.3f}")
+
+
+def cmd_rl_pipeline(args):
+    """RL/ray_tracer_rl_complete.py's pipeline: train, evaluate, benchmark
+    against random actions.  ``--algo ppo`` trains with
+    ``PPOTrainer.train_on_device``; ``sac`` with the host replay buffer."""
+    from pathlib import Path
+
+    from .compare.workbench import compare_rl_vs_random, evaluate_policy
+    from .core.device import resolve_device
+    from .env.raytracer_env import RayTracerEnv
+    from .env.scenes import training_scene_complete
+
+    dev = resolve_device("cpu" if args.cpu else args.device)
+    scene, gl, pl = training_scene_complete(device=dev)
+    env = RayTracerEnv(scene, image_width=400, image_height=300, fov=75,
+                       max_bounces=8, global_lights=gl, point_lights=pl,
+                       variant="rl")
+    if args.algo == "ppo":
+        from .agents.ppo import PPOConfig, PPOTrainer
+        tr = PPOTrainer(env, PPOConfig(tensorboard_log=args.tensorboard_log),
+                        seed=args.seed)
+        print(f"training (PPO on {dev})...")
+        print(json.dumps(tr.train_on_device(args.timesteps)))
+    else:
+        from .agents.sac import SACConfig, SACTrainer
+        tr = SACTrainer(env, SACConfig(
+            learning_starts=min(1000, args.timesteps // 4),
+            tensorboard_log=args.tensorboard_log), seed=args.seed)
+        print("training...")
+        print(json.dumps(tr.train(args.timesteps)))
+    tr.save(args.out)
+    print("evaluating...")
+    print(json.dumps(evaluate_policy(env, tr.predict, episodes=50)))
+    print("benchmark vs random...")
+    bench_out = str(Path(args.out).with_suffix("")) + "_benchmark.json"
+    print(json.dumps(compare_rl_vs_random(env, tr.predict, episodes=100,
+                                          out_path=bench_out), indent=2))
+    print(f"wrote {bench_out}")
 
 
 def _fb_args(args):
@@ -135,6 +266,22 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--height", type=int, default=600)
     r.add_argument("--multiple", type=int, default=None)
 
+    for name, fn in [("train-ppo", cmd_train_ppo),
+                     ("train-sac", cmd_train_sac)]:
+        t = command(name, fn)
+        t.add_argument("--timesteps", type=int, default=50_000)
+        t.add_argument("--lr", type=float, default=3e-4)
+        t.add_argument("--seed", type=int, default=0)
+        t.add_argument("--out", default=f"{name.replace('-', '_')}_model.pkl")
+        t.add_argument("--analyze", action="store_true")
+        t.add_argument("--tensorboard-log", default=None,
+                       help="write SB3-style TensorBoard events under "
+                            "this dir (e.g. ./raytracer_ppo_tensorboard/)")
+
+    q = command("train-q", cmd_train_q)
+    q.add_argument("--episodes", type=int, default=1000)
+    q.add_argument("--seed", type=int, default=0)
+
     for name, which in [("train-fb", None),
                         ("train-fb-chandelier", "chandelier"),
                         ("train-fb-complex", "complex")]:
@@ -164,6 +311,20 @@ def build_parser() -> argparse.ArgumentParser:
     e = command("experiment", cmd_experiment)
     e.add_argument("--mode", default="balanced_mode",
                    choices=["fast_mode", "balanced_mode", "quality_mode"])
+
+    dm = command("demo", cmd_demo)
+    dm.add_argument("--seed", type=int, default=0)
+
+    rp = command("rl-pipeline", cmd_rl_pipeline)
+    rp.add_argument("--algo", default="sac", choices=["sac", "ppo"],
+                    help="ppo: PPOTrainer.train_on_device; sac: the host "
+                         "replay buffer")
+    rp.add_argument("--timesteps", type=int, default=20_000)
+    rp.add_argument("--seed", type=int, default=0)
+    rp.add_argument("--out", default="raytracer_final.pkl")
+    rp.add_argument("--cpu", action="store_true",
+                    help="the same as --device cpu")
+    rp.add_argument("--tensorboard-log", default=None)
     return p
 
 

@@ -35,7 +35,7 @@ from ..fb.agent import FBResearchAgent
 from ..fb.config import FBConfig
 from ..scene.types import Scene
 from ..trace import sampling
-from ..trace.output5_style import _normalise_safe, _shade_level, sweep
+from ..trace.output5_style import _shade_level, sweep
 
 
 def find_model(base: str = "./fb_training_outputs") -> Optional[Path]:
@@ -74,7 +74,7 @@ class SimplifiedFBRenderer:
         features (:308-407)."""
         sc = self.scene
         dtype = point.dtype
-        sun_dir = _normalise_safe(sc.centre[self.sun_idx][None] - point)
+        sun_dir = vec.normalise_safe(sc.centre[self.sun_idx][None] - point)
         R = point.shape[0]
         col = lambda t: t[idx].to(dtype)[:, None]     # noqa: E731
         return torch.cat([
@@ -97,7 +97,7 @@ class SimplifiedFBRenderer:
         sc = self.scene
         dev = sc.device
         o = origins.to(dev)
-        d = _normalise_safe(dirs.to(dev))
+        d = vec.normalise_safe(dirs.to(dev))
         R, dtype = o.shape[0], o.dtype
         L = max_bounces
         if glass_uniforms is None:

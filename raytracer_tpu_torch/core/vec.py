@@ -42,6 +42,19 @@ def normalise_safe_c(x, y, z, eps: float = 1e-20):
     return x / m, y / m, z / m
 
 
+def dot(a, b):
+    """``[..., 3]`` dot product, summed left to right."""
+    return dot_c(*a.unbind(-1), *b.unbind(-1))
+
+
+def magnitude(v):
+    return sqrt(dot(v, v))
+
+
+def normalise_safe(v, eps: float = 1e-20):
+    return v / torch.clamp_min(magnitude(v), eps)[..., None]
+
+
 def reflect_c(vx, vy, vz, nx, ny, nz):
     """Reflect ``v`` in ``n``: normalise both, reflect, renormalise."""
     vx, vy, vz = normalise_safe_c(vx, vy, vz)
@@ -72,3 +85,33 @@ def refract_c(vx, vy, vz, nx, ny, nz, eta_a, eta_b):
     ox, oy, oz = normalise_safe_c(vx * eta + nx * f, vy * eta + ny * f,
                                   vz * eta + nz * f)
     return ox, oy, oz, tir
+
+
+def euler_rotation_matrix(ax: float, ay: float, az: float) -> np.ndarray:
+    """The reference's Euler rotation matrix (RL/vector.py:117-127) as
+    float64 numpy: ``angle.x`` rotates in the xy plane, ``angle.y`` about
+    the y axis, ``angle.z`` banks; applied as the row-vector product
+    ``v @ R``."""
+    a, b, c = ax, ay, az
+    sin, cos = np.sin, np.cos
+    return np.array([
+        [cos(c) * cos(b) * cos(a) - sin(c) * sin(a),
+         cos(c) * cos(b) * sin(a) + sin(c) * cos(a),
+         -cos(c) * sin(b)],
+        [-sin(c) * cos(b) * cos(a) - cos(c) * sin(a),
+         -sin(c) * cos(b) * sin(a) + cos(c) * cos(a),
+         sin(c) * sin(b)],
+        [sin(b) * cos(a), sin(b) * sin(a), cos(b)],
+    ], dtype=np.float64)
+
+
+def rotate_euler(v: torch.Tensor, ax: float, ay: float,
+                 az: float) -> torch.Tensor:
+    """``v @ R`` for ``[..., 3]`` vectors, the matrix rounded once to
+    ``v``'s dtype and each output a left-to-right sum of three products."""
+    m = euler_rotation_matrix(ax, ay, az)
+    x, y, z = v.unbind(-1)
+    r = [[torch.tensor(m[i, j], dtype=v.dtype, device=v.device)
+          for j in range(3)] for i in range(3)]
+    return torch.stack([x * r[0][j] + y * r[1][j] + z * r[2][j]
+                        for j in range(3)], dim=-1)

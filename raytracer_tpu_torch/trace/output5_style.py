@@ -75,18 +75,6 @@ def _const(vals, like):
     return torch.tensor(vals, dtype=like.dtype, device=like.device)
 
 
-def _dot(a, b):
-    return vec.dot_c(*a.unbind(-1), *b.unbind(-1))
-
-
-def _magnitude(v):
-    return vec.sqrt(_dot(v, v))
-
-
-def _normalise_safe(v, eps: float = 1e-20):
-    return v / torch.clamp_min(_magnitude(v), eps)[..., None]
-
-
 def _sun_blocked(scene: Scene, hit: Hit, skip_emissive: bool):
     """One shadow sweep toward the sun over every sphere but the hit one
     (and, ``skip_emissive``, the lights: the fb tracer's filter,
@@ -95,12 +83,12 @@ def _sun_blocked(scene: Scene, hit: Hit, skip_emissive: bool):
     to_sun_n [R, 3], sun_dist [R])``."""
     sun = _const(SUN_POS, hit.point)
     to_sun = sun[None] - hit.point
-    sun_dist = _magnitude(to_sun)
-    to_sun_n = _normalise_safe(to_sun)
+    sun_dist = vec.magnitude(to_sun)
+    to_sun_n = vec.normalise_safe(to_sun)
     o = hit.point + hit.normal * 0.001
     L = scene.centre.to(o.dtype)[None] - o[:, None, :]           # [R, N, 3]
-    tca = _dot(L, to_sun_n[:, None, :].expand_as(L))
-    d2 = torch.clamp_min(_dot(L, L) - tca * tca, 0.0)
+    tca = vec.dot(L, to_sun_n[:, None, :].expand_as(L))
+    d2 = torch.clamp_min(vec.dot(L, L) - tca * tca, 0.0)
     r = scene.radius.to(o.dtype)[None]
     thc = vec.sqrt(torch.clamp_min(r * r - d2, 0.0))
     t = tca - thc
@@ -111,23 +99,24 @@ def _sun_blocked(scene: Scene, hit: Hit, skip_emissive: bool):
         excl = excl | (scene.emitive > 0)[None, :]
     valid = valid & ~excl
     sp = o[:, None, :] + to_sun_n[:, None, :] * t[..., None]
-    sdist = _magnitude(sp - hit.point[:, None, :])
+    sdist = vec.magnitude(sp - hit.point[:, None, :])
     blocked = (valid & (sdist < sun_dist[:, None])).any(dim=-1)
     return blocked, to_sun_n, sun_dist
 
 
 def _shade_level(scene: Scene, hit: Hit):
     """Per-bounce 'original-like' lighting (RL/output5.py:663-729)."""
-    gdir = _normalise_safe(_const(GLOBAL_DIR, hit.point))
+    gdir = vec.normalise_safe(_const(GLOBAL_DIR, hit.point))
     gcol = _const(GLOBAL_COLOUR, hit.point)
     scol = _const(SUN_COLOUR, hit.point)
-    gcos = torch.clamp_min(_dot(hit.normal, gdir.expand_as(hit.normal)), 0.0)
+    gcos = torch.clamp_min(vec.dot(hit.normal, gdir.expand_as(hit.normal)),
+                           0.0)
     global_contrib = torch.trunc(gcol[None] * gcos[:, None] * 0.3)
     blocked, to_sun_n, sun_dist = _sun_blocked(scene, hit, False)
     atten = torch.clamp_max(torch.full_like(sun_dist, 100.0)
                             / torch.clamp_min(sun_dist * sun_dist, 1e-20),
                             1.0)
-    cos = torch.clamp_min(_dot(hit.normal, to_sun_n), 0.0)
+    cos = torch.clamp_min(vec.dot(hit.normal, to_sun_n), 0.0)
     sun_contrib = torch.trunc(scol[None] * (cos * 0.9 * atten)[:, None])
     sun_contrib = torch.where(blocked[:, None], 0.0, sun_contrib)
     combined = torch.clamp_max(global_contrib + sun_contrib, 255.0)
@@ -139,7 +128,7 @@ def _shade_level_fb(scene: Scene, hit: Hit):
     """The fb method's per-bounce lighting (:1070-1105)."""
     albedo = scene.colour[hit.idx].to(hit.point.dtype)
     blocked, to_sun_n, _ = _sun_blocked(scene, hit, True)
-    cos = torch.clamp_min(_dot(hit.normal, to_sun_n), 0.0)
+    cos = torch.clamp_min(vec.dot(hit.normal, to_sun_n), 0.0)
     ambient = torch.clamp_max(torch.trunc(albedo * 0.2)
                               + _const((40.0, 40.0, 100.0), albedo)[None],
                               255.0)
@@ -194,7 +183,7 @@ def trace_output5(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
         raise ValueError(f"traditional needs glass_uniforms "
                          f"[{max_bounces}, {R}]")
     uniforms = uniforms.to(dev, dtype)
-    d = _normalise_safe(dirs.to(dtype))
+    d = vec.normalise_safe(dirs.to(dtype))
     o = origins
     bg = _const((2.0, 2.0, 5.0), o)
     emissive = scene.emitive > 0

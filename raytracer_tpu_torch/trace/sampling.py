@@ -14,7 +14,9 @@ conventions, same op order as the JAX code:
 
 The bitangent is ``normalise(cross(n, t))`` in all three.
 
-FB actions are ``(a₀, a₁) ∈ [-1, 1]²`` with θ = (a₀+1)π/4, φ = a₁π
+RL env actions are ``(θ, φ) ∈ [0, π/2] × [0, 2π]`` already
+(``env_action_to_direction``, RL/ray_tracer_env.py:113-119).  FB actions
+are ``(a₀, a₁) ∈ [-1, 1]²`` with θ = (a₀+1)π/4, φ = a₁π
 (``fb_action_to_direction``); ``direction_to_action`` is the inverse with
 the hemisphere clamp (FB/train_complex_only.py:98-125).  Every function
 that draws takes its uniforms as an input plane (``u [..., 2]`` in
@@ -78,6 +80,19 @@ def fb_action_to_direction_c(a0, a1, nx, ny, nz,
 
 def _stack(c):
     return torch.stack(c, dim=-1)
+
+
+def local_to_world(theta, phi, normal, convention: str = "renderer"):
+    """``[...]`` polar and azimuth angles about ``[..., 3]`` normals,
+    ``[..., 3]`` world directions out."""
+    return _stack(local_to_world_c(theta, phi, *normal.unbind(-1),
+                                   convention))
+
+
+def env_action_to_direction(action, normal, convention: str = "env"):
+    """The RL env's action, ``(θ, φ)`` ``[..., 2]``, as a direction about
+    ``[..., 3]`` normals (JAX ``env_action_to_direction`` :145)."""
+    return local_to_world(action[..., 0], action[..., 1], normal, convention)
 
 
 def fb_action_to_direction(action, normal, convention: str = "renderer"):

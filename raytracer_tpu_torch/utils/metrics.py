@@ -1,9 +1,10 @@
-"""Run logging: a JSONL metrics stream and a CSV table writer.
+"""Run logging: a JSONL metrics stream, a CSV table writer and the RL
+behaviour rows.
 
-Counterpart of ``raytracer_tpu/utils/metrics.py``'s ``RunLogger`` and
-``write_csv`` (the per-comparison ``statistics.json`` is written by
-``compare/harness.py``, the experiment's summaries by
-``compare/experiment.py``).
+Counterpart of ``raytracer_tpu/utils/metrics.py``'s ``RunLogger``,
+``write_csv`` and ``episode_analytics`` (the per-comparison
+``statistics.json`` is written by ``compare/harness.py``, the experiment's
+summaries by ``compare/experiment.py``).
 """
 from __future__ import annotations
 
@@ -50,3 +51,16 @@ def write_csv(path, rows: Sequence[Mapping]):
         w.writeheader()
         for r in rows:
             w.writerow(r)
+
+
+def episode_analytics(env_scene, rewards, bounces, hit_ids,
+                      terminations) -> list[dict]:
+    """Behaviour rows, one an episode: reward, bounces, the final object's
+    id and the termination reason (RL/train_raytracer_improved.py:
+    113-205)."""
+    rows = []
+    for i, (r, b, h, t) in enumerate(zip(rewards, bounces, hit_ids,
+                                         terminations)):
+        rows.append({"episode": i, "reward": float(r), "bounces": int(b),
+                     "final_object_id": int(h), "termination": str(t)})
+    return rows

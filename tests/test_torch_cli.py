@@ -1,17 +1,20 @@
 """The port's CLI (raytracer_tpu_torch/cli.py, console script
 ``raytracer-tpu-torch``): each command parses as the JAX CLI's does (same
-arguments, same defaults, plus ``--device``), and ``render --device cpu``
+arguments, same defaults, plus ``--device``), the RL commands run with
+``--device cpu``, and ``render --device cpu``
 writes the same PNG bytes as the JAX CLI's ``cmd_render`` pipeline run op
 by op with 64-bit mode off (both write through ``native/imageio.cpp``).
 Jitted, XLA turns the image's ``/ 255`` into a multiply by the
 reciprocal, and the CLI's truncation to 8 bits can move a pixel by one
 step."""
 import argparse
+import json
 import tomllib
 from pathlib import Path
 
 import jax
 import pytest
+import torch
 
 import raytracer_tpu.cli as jax_cli
 from raytracer_tpu_torch import cli
@@ -37,7 +40,27 @@ ARGVS = [
     ["compare-complex"],
     ["experiment"],
     ["experiment", "--mode", "fast_mode"],
+    ["train-ppo"],
+    ["train-ppo", "--timesteps", "9", "--lr", "0.1", "--seed", "2", "--out",
+     "p.npz", "--analyze", "--tensorboard-log", "tb"],
+    ["train-sac"],
+    ["train-sac", "--timesteps", "9", "--out", "s.pkl"],
+    ["train-q"],
+    ["train-q", "--episodes", "7", "--seed", "1"],
+    ["demo"],
+    ["demo", "--seed", "3"],
+    ["rl-pipeline"],
+    ["rl-pipeline", "--algo", "ppo", "--timesteps", "9", "--seed", "1",
+     "--out", "r.npz", "--cpu", "--tensorboard-log", "tb"],
 ]
+RL_COMMANDS = {
+    "train-ppo": ["--timesteps", "100", "--out", "ppo.npz", "--analyze"],
+    "train-sac": ["--timesteps", "100", "--out", "sac.pkl"],
+    "train-q": ["--episodes", "64"],
+    "demo": ["--seed", "1"],
+    "rl-pipeline --algo sac": ["--timesteps", "100", "--out", "sac.npz"],
+    "rl-pipeline --algo ppo": ["--timesteps", "100", "--out", "ppo.npz"],
+}
 
 
 def jax_args(monkeypatch, argv):
@@ -46,7 +69,8 @@ def jax_args(monkeypatch, argv):
     seen = {}
     monkeypatch.setattr(jax_cli, "_enable_compilation_cache", lambda: None)
     for name in ("cmd_render", "cmd_train_fb", "cmd_compare",
-                 "cmd_experiment"):
+                 "cmd_experiment", "cmd_train_ppo", "cmd_train_sac",
+                 "cmd_train_q", "cmd_demo", "cmd_rl_pipeline"):
         monkeypatch.setattr(jax_cli, name,
                             lambda a, *_, **__: seen.setdefault("args", a))
     jax_cli.main(argv)
@@ -66,10 +90,34 @@ def test_commands_parse_as_jax(monkeypatch, argv):
 def test_device_option_and_unported_commands():
     args = cli.build_parser().parse_args(["experiment", "--device", "cpu"])
     assert args.device == "cpu"
-    for name in ("animate", "train-ppo", "train-sac", "train-q", "demo",
-                 "interactive", "rl-pipeline"):
+    for name in ("animate", "interactive"):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args([name])
+
+
+@pytest.mark.parametrize("command", sorted(RL_COMMANDS))
+def test_rl_commands_run_on_cpu(tmp_path, monkeypatch, capsys, command):
+    """Each RL command end to end with ``--device cpu`` at a tiny size;
+    without ``--device`` it asks for the card and, with none, raises."""
+    monkeypatch.chdir(tmp_path)
+    argv = command.split() + RL_COMMANDS[command]
+    cli.main(argv + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    if command.startswith("rl-pipeline"):
+        stem = argv[argv.index("--out") + 1].rsplit(".", 1)[0]
+        bench = json.loads((tmp_path / f"{stem}_benchmark.json").read_text())
+        assert set(bench["rl"]) == set(bench["random"])
+        assert (tmp_path / argv[argv.index("--out") + 1]).exists()
+    elif command.startswith("train-") and command != "train-q":
+        assert (tmp_path / argv[argv.index("--out") + 1]).exists()
+    if "--analyze" in argv:
+        assert (tmp_path / "ppo_analysis.csv").exists()
+        assert "not ported" in out
+    if command == "demo":
+        assert "total reward" in out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
 
 
 def test_console_script_is_declared():

@@ -1,6 +1,6 @@
 """The port stands alone: no module of raytracer_tpu_torch, and not
-chip_smoke.py, imports JAX or anything of the JAX package (the machine
-with the card has no JAX)."""
+chip_smoke.py, imports JAX, flax, optax, orbax or anything of the JAX
+package (the machine with the card has none of them)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,7 @@ import pytest
 ROOT = Path(__file__).parents[1]
 SOURCES = sorted((ROOT / "raytracer_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "raytracer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "raytracer_tpu")
 
 
 def _imported(tree):

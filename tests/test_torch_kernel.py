@@ -764,3 +764,51 @@ def test_output5_kernel_sweep_equals_plain_on_card(method):
     assert torch.equal(rk, rp)
     assert {k: float(v) for k, v in sk.items()} == \
         {k: float(v) for k, v in sp.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rl", "fb"])
+def test_rl_env_and_renderer_kernel_routes_on_card(variant):
+    """The RL env's kernel route (the Whitted kernel at reset, the
+    nearest-hit kernel a level and in the shadow sweeps) equals its plain
+    route on the card bit for bit, 512 episodes on the same draws; the RL
+    renderer's Whitted-kernel image equals its plain image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run on the card with "
+                    "python -m pytest --noconftest tests/test_torch_kernel.py "
+                    "-m cuda")
+    from raytracer_tpu_torch.compare import rl_renderer
+    from raytracer_tpu_torch.env.raytracer_env import RayTracerEnv
+    from raytracer_tpu_torch.env.scenes import training_scene_complete
+    dev = torch.device("cuda")
+    if variant == "rl":
+        scene, gl, pl = training_scene_complete(device=dev)
+        kw = dict(fov=75, global_lights=gl, point_lights=pl)
+    else:
+        scene, gl, pl, _ = library.custom_scene(device=dev)
+        kw = dict(fov=60, camera_position=(0, 0, 1), background=(2, 2, 5),
+                  sun_id=7)
+    envs = [RayTracerEnv(scene, image_width=400, image_height=300,
+                         max_bounces=8, variant=variant, impl=impl, **kw)
+            for impl in ("kernel", "plain")]
+    gen = torch.Generator(dev).manual_seed(0)
+    pixel = envs[0].draw_pixels(512, gen)
+    acts = torch.rand((10, 512, 2), generator=gen, device=dev)
+    runs = []
+    for env in envs:
+        s, o = env.reset(512, pixel=pixel)
+        outs = [o]
+        for a in acts:
+            s, o, r, t, info = env.step(s, a * torch.tensor(
+                [np.pi / 2, 2 * np.pi], device=dev) if variant == "rl"
+                else a * 2 - 1)
+            outs += [o, r, t, info["truncated"], s.total_reward]
+        runs.append(outs)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    test_scene = rl_renderer.create_test_scene(dev)
+    u = torch.rand((1, 5, 80 * 60, 2), generator=gen, device=dev)
+    imgs = [rl_renderer.render_guided(test_scene, None, u, width=80,
+                                      height=60, impl=impl)
+            for impl in ("kernel", "plain")]
+    assert torch.equal(*imgs)

@@ -56,6 +56,18 @@ just after:
   iterations at the shipped config and SAC updates on the card's ring
   buffer, the first updates held against float64 (rl_train); render_guided
   at 400x300@1spp, 5 bounces, three Whitted launches a bounce (rl_render).
+* the frame-serving extras: README's planets2 turntable (24 frames,
+  400x300, render_whitted_frames: the Whitted kernel and the shadow
+  sweeps' nearest-hit launches a frame; animate_whitted); the guided
+  chandelier turntable (12 frames, 200x100@4spp/8, the registry's bf16
+  student in the guided path kernel), the same unguided, and
+  cornell_box:1007 at 160x120@4/8 with its student (animate_path);
+  planets2 2001x2001@10 and marbles4 801x801@8 through
+  render_whitted(impl="compact"), a nearest-hit launch a level on the live
+  lanes (whitted_compact); the sharded renders on make_mesh() and on two
+  shards of the one card (sharded); a reference-schema .pth at FBConfig()'s
+  width through TrainedFBAgent against its .npz twin (pth_import); and the
+  CLI's animate end to end (cli_animate).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -75,12 +87,14 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from raytracer_tpu_torch import cli
 from raytracer_tpu_torch.agents import SHIPPED_DIR
 from raytracer_tpu_torch.agents.ppo import (PPOConfig, PPOTrainer,
                                             clip_by_global_norm_)
@@ -110,8 +124,13 @@ from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
 from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
                                              model_path_for)
 from raytracer_tpu_torch.fb.trainer import ChandelierOnlyTrainer
-from raytracer_tpu_torch.utils.checkpoint import PARTS, load_fb
+from raytracer_tpu_torch.parallel import mesh as pmesh
+from raytracer_tpu_torch.render import animation
+from raytracer_tpu_torch.scene.templates import generate_scene
+from raytracer_tpu_torch.utils.checkpoint import PARTS, load_fb, save_fb
+from raytracer_tpu_torch.utils.profiling import device_trace
 from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
+from raytracer_tpu_torch.render import path_renderer
 from raytracer_tpu_torch.render.path_renderer import render_path
 from raytracer_tpu_torch.render.renderer import material_flags, render_whitted
 from raytracer_tpu_torch.scene import library
@@ -2812,6 +2831,498 @@ def rl_render_phase(dev, card, launches):
     return entry
 
 
+# --- Frame-serving extras: turntables, compact Whitted, sharded renders,
+# --- the reference .pth import and the CLI's animate. ----------------------
+
+TT_FRAMES, TT_W, TT_H = 24, 400, 300         # README.md:137-142, planets2
+AP_FRAMES, AP_W, AP_H, AP_SPP, AP_BOUNCES = 12, 200, 100, 4, 8
+CB_SCENE, CB_W, CB_H = "cornell_box:1007", 160, 120     # the showcase's
+CB_CAMERA = (0.0, 0.5, 0.0)        # the CLI's camera for template scenes
+
+
+def wall_ms(fn, reps=3):
+    """Least host milliseconds of ``fn()`` ended by a synchronize, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t1) * 1e3)
+    return best
+
+
+def animate_whitted_phase(dev, card, launches):
+    """Phase animate_whitted: README's planets2 turntable (24 frames,
+    400x300, the CLI's orbit around scene_focus) through
+    render_whitted_frames: frame 0 equals the single-frame kernel render
+    bit for bit, a frame's kernel route its plain route.  Returns the
+    ``kernels`` entries of one frame's Whitted and nearest-hit launches."""
+    t0 = time.perf_counter()
+    scene, gl, pl, p = library.planets2_scene(device=dev)
+    eyes, target, radius, y = animation.turntable(
+        scene, p["camera_position"], TT_FRAMES, device=dev)
+    o, d = animation.camera_path_rays(eyes, target, TT_W, TT_H)
+    kw = dict(max_bounces=p["max_bounces"], background=p["background"],
+              miss_colour=p.get("sky_colour"))
+
+    def frames():
+        return animation.render_whitted_frames(scene, gl, pl, o, d, TT_H,
+                                               TT_W, **kw)
+
+    frames()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    imgs = frames()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    add_launches(launches.setdefault("animate_whitted", {}), counts)
+    ms = wall_ms(frames) / TT_FRAMES
+    one = lambda impl, f=0: render_whitted(  # noqa: E731
+        scene, gl, pl, o[f].contiguous(), d[f].contiguous(), TT_H, TT_W,
+        impl=impl, **kw)
+    single_equal = bool(torch.equal(imgs[0], one("kernel")))
+    k = TT_FRAMES // 3
+    plain_equal, plain_err, plain_off = compare_images(imgs[k], one("plain",
+                                                                    k))
+    w_calls = recorded_launches(cuda_whitted, "whitted_trace",
+                                lambda: one("kernel", k))
+    w_equal, w_err = whitted_vs_plain(w_calls)
+    nh_calls = nearest_hit_calls(lambda: one("kernel", k))
+    nh_err, nh_same = sweep_vs_plain(nh_calls)
+    emit({"phase": "animate_whitted", **card,
+          "frames": f"{TT_FRAMES} x {TT_W}x{TT_H}/{p['max_bounces']}",
+          "target": [float(v) for v in target], "radius": radius, "y": y,
+          "launches": counts,
+          "launches_a_frame": {n: counts[n] / TT_FRAMES
+                               for n in ("whitted_trace", "nearest_hit")},
+          "ms_a_frame": ms, "max_memory_allocated_bytes": peak,
+          "frame0_equals_single_frame": single_equal,
+          "frame_kernel_vs_plain_bit_equal": plain_equal,
+          "frame_kernel_vs_plain_max_abs_err": plain_err,
+          "recorded_whitted_bit_equal": w_equal,
+          "recorded_nearest_hit_same": nh_same,
+          "mean_pixel": float(imgs.mean()),
+          "seconds": time.perf_counter() - t0})
+    check(tuple(imgs.shape) == (TT_FRAMES, TT_H, TT_W, 3)
+          and bool(torch.isfinite(imgs).all()), "animate_whitted: frames")
+    check(not torch.equal(imgs[0], imgs[k]), "animate_whitted: no motion")
+    check(single_equal, "animate_whitted: frame 0 != its single-frame render")
+    check(plain_equal or plain_off <= W_PIXELS_OFF,
+          f"animate_whitted: kernel vs plain {plain_err}, {plain_off} off")
+    check(w_equal and nh_same, "animate_whitted: a recorded launch differs "
+          "from its plain version")
+    check(counts["whitted_trace"] == TT_FRAMES
+          and counts["nearest_hit"] >= TT_FRAMES * pl.count,
+          f"animate_whitted: launches {counts}")
+    w_entry = whitted_entry("whitted_trace_animate", w_calls, w_err)
+    nh_entry = sweep_entry("nearest_hit_animate", nh_calls, nh_err)
+    w_entry["launches"] = counts["whitted_trace"]
+    nh_entry["launches"] = counts["nearest_hit"]
+    return [w_entry, nh_entry]
+
+
+def animate_path_phase(dev, card, launches):
+    """Phase animate_path: README's guided chandelier turntable (12 frames,
+    200x100@4spp/8, the registry's bf16 student), the same turntable
+    unguided, and cornell_box:1007 at 160x120@4/8 with the registry's
+    cornell student, through render_path_frames impl "kernel"; frame 0's
+    trace held against plain on the same draws (unguided bit for bit,
+    guided within the dense-bf16 bounds)."""
+    t0 = time.perf_counter()
+    chand, _, _, cp = chandelier_scene(device=dev)
+    cornell, _ = generate_scene(CB_SCENE.split(":")[0],
+                                int(CB_SCENE.split(":")[1]), device=dev)
+    runs = {
+        "chandelier_guided": (chand, cp["camera_position"], AP_W, AP_H,
+                              guide_for("chandelier", AP_W, AP_H,
+                                        STUDENTS_DIR)),
+        "chandelier_unguided": (chand, cp["camera_position"], AP_W, AP_H,
+                                None),
+        "cornell_guided": (cornell, CB_CAMERA, CB_W, CB_H,
+                           guide_for(CB_SCENE, CB_W, CB_H, STUDENTS_DIR)),
+    }
+    out = {}
+    for name, (scene, cam, w, h, guide) in runs.items():
+        check(guide is not None or "unguided" in name,
+              f"animate_path {name}: the registry found no student")
+        eyes, target, _, _ = animation.turntable(scene, cam, AP_FRAMES,
+                                                 device=dev)
+        kw = dict(width=w, height=h, spp=AP_SPP, max_bounces=AP_BOUNCES,
+                  guide_fn=guide, fb_prob=1.0, device=dev)
+
+        def frames(impl="kernel", e=eyes):
+            return animation.render_path_frames(
+                scene, e, target, impl=impl,
+                generator=torch.Generator(dev).manual_seed(SEED + 90), **kw)
+
+        frames()
+        reset_counts()
+        imgs, st = frames()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add_launches(launches.setdefault("animate_path", {}), counts)
+        ms = wall_ms(frames) / AP_FRAMES
+        # Frame 0's trace, kernel vs plain on the same draws.
+        g = torch.Generator(dev).manual_seed(SEED + 91)
+        R = AP_SPP * h * w
+        jit = torch.rand((AP_SPP, h, w, 2), generator=g, device=dev)
+        u = torch.rand((AP_BOUNCES, R, 2), generator=g, device=dev)
+        fb = (torch.rand((AP_BOUNCES, R), generator=g, device=dev)
+              if guide is not None else None)
+        o0, d0 = animation.look_at_rays(w, h, eye=eyes[0], target=target,
+                                        sample_xy=jit)
+        tkw = dict(max_bounces=AP_BOUNCES, background=BG, uniforms=u,
+                   fb_uniforms=fb, guide_fn=guide, fb_prob=1.0)
+        rk, sk = trace_path(scene, o0, d0, impl="kernel", **tkw)
+        rp, sp = trace_path(scene, o0, d0, impl="plain", **tkw)
+        ok, rep = compare_guided(rk, sk.as_dict(), rp, sp.as_dict(),
+                                 exact=guide is None)
+        # The frames path's frame 0 is that trace.
+        f0, _ = animation.render_path_frames(
+            scene, eyes[:1], target, jitter=jit[None], uniforms=u[None],
+            fb_uniforms=None if fb is None else fb[None], impl="kernel",
+            **kw)
+        same_f0 = bool(torch.equal(f0[0], path_renderer._average(
+            rk.reshape(AP_SPP, h, w, 3).sum(0), AP_SPP)))
+        out[name] = {"frames": f"{AP_FRAMES} x {w}x{h}@{AP_SPP}spp/"
+                               f"{AP_BOUNCES}",
+                     "launches": counts, "ms_a_frame": ms,
+                     "stats": st.as_dict(), "kernel_vs_plain": rep,
+                     "frame0_is_its_trace": same_f0,
+                     "finite": bool(torch.isfinite(imgs).all())}
+        check(ok and same_f0 and out[name]["finite"],
+              f"animate_path {name}: {rep}, frame 0 {same_f0}")
+        route = "unguided" if guide is None else "bf16_mma"
+        check(counts["path_trace"][route] == AP_FRAMES,
+              f"animate_path {name}: launches {counts}")
+    hits = {n: out[n]["stats"]["small_light_hits"] for n in out}
+    emit({"phase": "animate_path", **card, **out,
+          "small_light_hits": hits,
+          "guided_over_unguided": (hits["chandelier_guided"]
+                                   / max(hits["chandelier_unguided"], 1)),
+          "seconds": time.perf_counter() - t0})
+
+
+def compact_profile(frame, log_dir):
+    """One compact frame under ``utils/profiling.py::device_trace`` (its
+    Chrome trace into ``log_dir``): the window on the host clock, the
+    device's busy time from the kernels' own events, the host reads (each
+    a ``_local_scalar_dense``, ``nonzero`` or device-to-host copy, which
+    waits for the card) and device time by kernel."""
+    frame()
+    torch.cuda.synchronize()
+    with device_trace(str(log_dir)) as prof:
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_name, reads = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            calls, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+        elif e.name in ("aten::_local_scalar_dense", "aten::nonzero"):
+            reads += 1
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"window_ms": window_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / window_ms,
+            "host_reads": reads, "device_kernels": sum(
+                c for c, _ in by_name.values()),
+            "top": [{"name": k[:60], "calls": c, "device_ms": us / 1e3}
+                    for k, (c, us) in top]}
+
+
+def whitted_compact_phase(dev, card, launches, trace_dir):
+    """Phase whitted_compact: planets2 2001x2001@10 and marbles4 801x801@8
+    through render_whitted(impl="compact") and trace_whitted: image and
+    every trace field equal to the plain route bit for bit; the times of
+    compact, kernel and plain, and a profile of one compact frame.
+    Returns the ``kernels`` entry of planets2's compact sweeps."""
+    entry = None
+    for name, multiple in (("planets2", 10), ("marbles4", 4)):
+        t0 = time.perf_counter()
+        scene, gl, pl, o, d, h, w, kw, _ = notebook_frame(name, multiple, dev)
+        eg, em = material_flags(scene)
+        render_whitted(scene, gl, pl, o, d, h, w, impl="compact", **kw)
+        reset_counts()
+        img_c = render_whitted(scene, gl, pl, o, d, h, w, impl="compact",
+                               **kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        add_launches(launches.setdefault("whitted_compact", {}), counts)
+        img_p = render_whitted(scene, gl, pl, o, d, h, w, impl="plain", **kw)
+        tkw = dict(enable_glass=eg, enable_mirror=em)
+        res_c = trace_whitted(scene, o, d, kw["max_bounces"], impl="compact",
+                              **tkw)
+        res_p = trace_whitted(scene, o, d, kw["max_bounces"], impl="plain",
+                              **tkw)
+        tr_equal, tr_err, _ = compare_traces(res_c, res_p)
+        # The levels' sweeps, recorded, with the live lanes a level.
+        work = {}
+        table = cuda_intersect.sphere_table(scene, eg, em)
+        calls = recorded_launches(
+            cuda_whitted, "nearest_hit",
+            lambda: cuda_whitted.whitted_trace_compact(
+                o, d.contiguous(), None, table,
+                max_bounces=kw["max_bounces"], sweep="kernel",
+                counters=work))
+        ms = {impl: wall_ms(lambda i=impl: render_whitted(
+            scene, gl, pl, o, d, h, w, impl=i, **kw), 2)
+            for impl in ("compact", "kernel", "plain")}
+        emit({"phase": "whitted_compact", **card, "scene": name,
+              "frame": f"{w}x{h}/{kw['max_bounces']}", "launches": counts,
+              "image_bit_equal": bool(torch.equal(img_c, img_p)),
+              "trace_bit_equal": tr_equal, "trace_max_abs_err": tr_err,
+              "live_lanes_and_bucket_a_level": work["lanes"],
+              "frame_ms": ms,
+              "profile": compact_profile(
+                  lambda: render_whitted(scene, gl, pl, o, d, h, w,
+                                         impl="compact", **kw),
+                  trace_dir / name),
+              "seconds": time.perf_counter() - t0})
+        check(bool(torch.equal(img_c, img_p)) and tr_equal,
+              f"whitted_compact {name}: compact != plain ({tr_err})")
+        check(counts["whitted_trace"] == 0
+              and counts["nearest_hit"] == len(work["lanes"]) + pl.count,
+              f"whitted_compact {name}: launches {counts}")
+        if name == "planets2":
+            err, same = sweep_vs_plain(calls)
+            check(same, "whitted_compact: a level's sweep differs from plain")
+            entry = sweep_entry("nearest_hit_compact", calls, err)
+            entry["launches"] = counts["nearest_hit"]
+    return entry
+
+
+def sharded_phase(dev, card, launches):
+    """Phase sharded: make_mesh() on the one card (dp=1) and
+    devices=[cuda:0]*2 (dp=2): the Whitted frame (true_original 601x601, a
+    ray count dp=2 pads), the Whitted frames (5, padded to 6), the path
+    frame (chandelier 200x100@4spp/8, impl "kernel") and the stepwise
+    frame, each equal to its unsharded render bit for bit."""
+    t0 = time.perf_counter()
+    scene, gl, pl, o, d, h, w, kw, _ = notebook_frame("true_original", 3,
+                                                      dev)
+    planets, pgl, ppl, pp = library.planets2_scene(device=dev)
+    eyes, target, _, _ = animation.turntable(planets, pp["camera_position"],
+                                             5, device=dev)
+    fo, fd = animation.camera_path_rays(eyes, target, 200, 150)
+    fkw = dict(max_bounces=pp["max_bounces"], background=pp["background"])
+    chand, _, _, cp = chandelier_scene(device=dev)
+    g = torch.Generator(dev).manual_seed(SEED + 95)
+    R = AP_SPP * AP_H * AP_W
+    planes = dict(jitter=torch.rand((AP_SPP, AP_H, AP_W, 2), generator=g,
+                                    device=dev),
+                  uniforms=torch.rand((AP_BOUNCES, R, 2), generator=g,
+                                      device=dev))
+    pkw = dict(width=AP_W, height=AP_H, spp=AP_SPP, max_bounces=AP_BOUNCES,
+               camera_position=cp["camera_position"], background=BG)
+    want = {"whitted": render_whitted(scene, gl, pl, o, d, h, w, **kw),
+            "whitted_frames": animation.render_whitted_frames(
+                planets, pgl, ppl, fo, fd, 150, 200, **fkw)}
+    for impl in ("kernel", "stepwise"):
+        want[impl] = render_path(chand, impl=impl, device=dev, **planes,
+                                 **pkw)
+    out = {}
+    reset_counts()
+    for label, m in (("dp1", pmesh.make_mesh()),
+                     ("dp2", pmesh.make_mesh(devices=[dev, dev]))):
+        got = {"whitted": pmesh.render_whitted_sharded(m, scene, gl, pl, o,
+                                                       d, h, w, **kw),
+               "whitted_frames": pmesh.render_whitted_frames_sharded(
+                   m, planets, pgl, ppl, fo, fd, 150, 200, **fkw)}
+        for impl in ("kernel", "stepwise"):
+            got[impl] = pmesh.render_path_sharded(m, chand, impl=impl,
+                                                  **planes, **pkw)
+        eq = {}
+        for k, v in want.items():
+            if isinstance(v, tuple):
+                eq[k] = (bool(torch.equal(got[k][0], v[0]))
+                         and got[k][1].as_dict() == v[1].as_dict())
+            else:
+                eq[k] = bool(torch.equal(got[k], v))
+        out[label] = {"mesh": m.shape, "equal": eq}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_launches(launches.setdefault("sharded", {}), counts)
+    emit({"phase": "sharded", **card, **out, "launches": counts,
+          "whitted_rays": h * w,
+          "seconds": time.perf_counter() - t0})
+    for label, v in out.items():
+        check(all(v["equal"].values()),
+              f"sharded {label}: a sharded render differs: {v['equal']}")
+
+
+def reference_fb_state(cfg, seed, dev):
+    """The reference's Enhanced FB state dicts (its key names,
+    FB/fb_vs_traditional_complex.py:37-142) at ``cfg``'s widths, seeded
+    weights at the scale of torch's initialisation, on the CPU."""
+    g = torch.Generator(dev).manual_seed(seed)
+    e, f, b, z, a = (cfg.e_hidden_dim, cfg.f_hidden_dim, cfg.b_hidden_dim,
+                     cfg.z_dim, cfg.action_dim)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def lin(out, inp, name):
+        return {f"{name}.weight": rand(out, inp) / inp ** 0.5,
+                f"{name}.bias": rand(out) * 0.1}
+
+    def ln(dim, name):
+        return {f"{name}.weight": 1 + 0.1 * rand(dim),
+                f"{name}.bias": 0.1 * rand(dim)}
+
+    def res(dim, name):
+        return {**lin(dim, dim, f"{name}.net.0"), **ln(dim, f"{name}.net.1"),
+                **lin(dim, dim, f"{name}.net.3"), **ln(dim, f"{name}.net.4")}
+
+    enc = {**lin(e, cfg.obs_dim, "input_proj.0"), **ln(e, "input_proj.1"),
+           "attention.in_proj_weight": rand(3 * e, e) / e ** 0.5,
+           "attention.in_proj_bias": rand(3 * e) * 0.1,
+           **lin(e, e, "attention.out_proj"), **lin(e, e, "output.0"),
+           **lin(2 * z, e, "output.2")}
+    for i in range(3):
+        enc.update(res(e, f"res_blocks.{i}"))
+    fwd = {**lin(f, z + a, "input_net.0"), **ln(f, "input_net.1")}
+    for i in range(cfg.num_layers):
+        fwd.update(lin(2 * f, f, f"gated_blocks.{i}.0"))
+    for h in range(cfg.num_forward_heads):
+        fwd.update({**lin(f, f, f"heads.{h}.0"),
+                    **lin(2 * z, f, f"heads.{h}.2")})
+    bwd = {**lin(b, 2 * z, "input_net.0"), **ln(b, "input_net.1"),
+           **lin(a, b, "mean_head"), **lin(a, b, "log_var_head")}
+    for i in range(2):
+        bwd.update(res(b, f"res_blocks.{i}"))
+    return {k: {n: t.cpu() for n, t in sd.items()} for k, sd in
+            (("encoder", enc), ("forward_model", fwd),
+             ("backward_model", bwd))}
+
+
+def imported_as_reference(ref, agent, cfg, dev):
+    """Each checked parameter of ``agent`` (imported from the state dicts
+    ``ref``) held on the card against the reference layout, restated here
+    from torch's conventions: a ``Linear``'s kernel is ``weight.T``, a
+    ``LayerNorm``'s scale its ``weight``, and ``in_proj_weight [3H, H]``
+    the query, key and value kernels stacked as ``[H, heads, head_dim]``
+    transposed.  Returns ``{checked name: equal}``."""
+    e, heads = cfg.e_hidden_dim, 4
+    enc, fwd, bwd = (ref[k] for k in ("encoder", "forward_model",
+                                      "backward_model"))
+    mha = agent.encoder.MultiHeadDotProductAttention_0
+    last = cfg.num_layers + 2 * cfg.num_forward_heads
+    pairs = {
+        "enc.input_proj.0": (agent.encoder.Dense_0.kernel,
+                             enc["input_proj.0.weight"].T),
+        "enc.input_proj.1": (agent.encoder.LayerNorm_0.scale,
+                             enc["input_proj.1.weight"]),
+        "enc.output.2": (agent.encoder.Dense_2.bias, enc["output.2.bias"]),
+        "enc.res_blocks.2.net.4": (
+            agent.encoder.ResidualBlock_2.LayerNorm_1.scale,
+            enc["res_blocks.2.net.4.weight"]),
+        "enc.attention.out_proj": (
+            mha.out.kernel.reshape(e, e),
+            enc["attention.out_proj.weight"].T),
+        "fwd.input_net.0": (agent.forward_model.Dense_0.kernel,
+                            fwd["input_net.0.weight"].T),
+        f"fwd.heads.{cfg.num_forward_heads - 1}.2": (
+            getattr(agent.forward_model, f"Dense_{last}").kernel,
+            fwd[f"heads.{cfg.num_forward_heads - 1}.2.weight"].T),
+        "bwd.mean_head": (agent.backward.Dense_1.kernel,
+                          bwd["mean_head.weight"].T),
+        "bwd.log_var_head": (agent.backward.Dense_2.bias,
+                             bwd["log_var_head.bias"]),
+        "bwd.res_blocks.1.net.3": (
+            agent.backward.ResidualBlock_1.Dense_1.kernel,
+            bwd["res_blocks.1.net.3.weight"].T)}
+    w_in = enc["attention.in_proj_weight"]
+    for i, part in enumerate(("query", "key", "value")):
+        pairs[f"enc.attention.in_proj.{part}"] = (
+            getattr(mha, part).kernel,
+            w_in[i * e:(i + 1) * e].T.reshape(e, heads, e // heads))
+    return {k: bool(torch.equal(got, want.to(dev)))
+            for k, (got, want) in pairs.items()}
+
+
+def pth_import_phase(dev, card, scene, params, out_dir):
+    """Phase pth_import: a reference-schema .pth at FBConfig()'s widths
+    (seeded; its config an object of a class of the reference's
+    fb_ray_tracing module, present only while it is written) loaded
+    through TrainedFBAgent guides the 200x100@8spp/8 hybrid frame as the
+    same weights saved as a native .npz do, bit for bit, and its imported
+    parameters equal the reference layout restated from torch's
+    conventions (``imported_as_reference``)."""
+    t0 = time.perf_counter()
+    cfg = FBConfig()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    pth, npz = out_dir / "fb_reference.pth", out_dir / "fb_reference.npz"
+    mod = types.ModuleType("fb_ray_tracing")
+    mod.FBConfig = type("FBConfig", (), {"__module__": "fb_ray_tracing"})
+    ref = reference_fb_state(cfg, SEED + 97, dev)
+    sys.modules["fb_ray_tracing"] = mod
+    try:
+        torch.save({"fb_learner_state": ref, "config": mod.FBConfig()}, pth)
+    finally:
+        del sys.modules["fb_ray_tracing"]
+    idx = small_light_indices(scene)
+    cam = params["camera_position"]
+    a_pth = TrainedFBAgent(str(pth), scene, idx, cam, config=cfg, device=dev)
+    leaked = "fb_ray_tracing" in sys.modules
+    as_reference = imported_as_reference(ref, a_pth, cfg, dev)
+    nets = {"encoder": a_pth.encoder, "forward": a_pth.forward_model,
+            "backward": a_pth.backward, "target_encoder": a_pth.encoder}
+    save_fb(npz, nets, cfg)
+    a_npz = TrainedFBAgent(str(npz), scene, idx, cam, config=cfg,
+                           device=dev)
+    rkw = dict(width=A_W, height=A_H, spp=SPP,
+               max_bounces=BOUNCES, camera_position=cam,
+               mirror_threshold=G_THRESHOLD, fb_prob=G_FB_PROB,
+               impl="hybrid", device=dev)
+    sides = [render_path(scene, guide_fn=a.as_guide_fn(),
+                         generator=torch.Generator(dev).manual_seed(SEED),
+                         **rkw) for a in (a_pth, a_npz)]
+    torch.cuda.synchronize()
+    equal = (bool(torch.equal(sides[0][0], sides[1][0]))
+             and sides[0][1].as_dict() == sides[1][1].as_dict())
+    params_equal = all(
+        torch.equal(p, q) for n in ("encoder", "backward")
+        for p, q in zip(getattr(a_pth, n).parameters(),
+                        getattr(a_npz, n).parameters()))
+    emit({"phase": "pth_import", **card,
+          "frame": f"{A_W}x{A_H}@{SPP}spp/{BOUNCES}",
+          "pth_bytes": pth.stat().st_size, "frame_bit_equal": equal,
+          "parameters_equal": params_equal,
+          "imported_as_reference": as_reference,
+          "fb_ray_tracing_in_sys_modules": leaked,
+          "stats": sides[0][1].as_dict(),
+          "seconds": time.perf_counter() - t0})
+    check(equal and params_equal and not leaked,
+          "pth_import: the .pth agent does not guide as its .npz twin")
+    check(all(as_reference.values()),
+          f"pth_import: imported parameters differ from the reference "
+          f"layout: {as_reference}")
+    check(sides[0][1].as_dict()["fb_used"] > 0, "pth_import: no guided ray")
+
+
+def cli_animate_phase(dev, card, out_dir):
+    """Phase cli_animate: the CLI's animate, end to end on the card (the
+    README's planets2 turntable), into ``out_dir``."""
+    t0 = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cli.main(["animate", "--scene", "planets2", "--frames", str(TT_FRAMES),
+              "--width", str(TT_W), "--height", str(TT_H), "--out-dir",
+              str(out_dir)])
+    files = sorted(p.name for p in out_dir.iterdir())
+    stats = json.loads((out_dir / "animation_stats.json").read_text())
+    emit({"phase": "cli_animate", **card, "files": len(files),
+          "stats": stats, "seconds": time.perf_counter() - t0})
+    check(stats["frames"] == TT_FRAMES and len(files) == TT_FRAMES + 3,
+          f"cli_animate: {len(files)} files, stats {stats}")
+
+
 def level_edges_phase(dev):
     """Phase level_edges: on seeded scenes built to cross the shared level's
     rewrites (radii with T(r) != fl(r*r) and rays grazing them, lights whose
@@ -3117,6 +3628,22 @@ def main():
     rl_render_kernel = rl_render_phase(dev, card, rl_routes)
     emit({"phase": "rl_total", "launches": rl_routes,
           "seconds": time.perf_counter() - t_rl})
+    # The frame-serving extras: turntables, compact Whitted, sharded
+    # renders, the .pth import and the CLI's animate.
+    t_fx = time.perf_counter()
+    fx_routes = {}
+    animate_kernels = animate_whitted_phase(dev, card, fx_routes)
+    animate_path_phase(dev, card, fx_routes)
+    compact_kernel = whitted_compact_phase(dev, card, fx_routes,
+                                           ROOT / "build" / "compact_trace")
+    sharded_phase(dev, card, fx_routes)
+    pth_import_phase(dev, card, scene, params, ROOT / "build" / "pth_import")
+    cli_animate_phase(dev, card, ROOT / "build" / "animate")
+    fx_total = {}
+    for counts in fx_routes.values():
+        add_launches(fx_total, counts)
+    emit({"phase": "frame_extras_total", "launches": fx_routes,
+          "seconds": time.perf_counter() - t_fx})
     by_entry = {"path_trace": new_routes["path_trace"]["unguided"],
                 "path_trace_guided": new_routes["path_trace"]["bf16_mma"],
                 "path_level": new_routes["path_level"],
@@ -3130,13 +3657,19 @@ def main():
         "launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
         "library_ms": None}] + whitted_kernels + guided_kernels
+    fx_entry = {"path_trace": fx_total["path_trace"]["unguided"],
+                "path_trace_guided": fx_total["path_trace"]["bf16_mma"],
+                "path_level": fx_total["path_level"],
+                "whitted_trace": fx_total["whitted_trace"],
+                "nearest_hit": fx_total["nearest_hit"]}
     for k in kernels:
         k["launches_harness_distill_output5"] = by_entry[k["name"]]
+        k["launches_frame_extras"] = fx_entry[k["name"]]
         if k["name"] in ("whitted_trace", "nearest_hit"):
             k["launches_rl"] = rl_routes[k["name"]]
     emit({"kernels": kernels + [walk_kernel, distill_kernel,
                                 output5_kernel] + rl_env_kernels
-          + [rl_render_kernel]})
+          + [rl_render_kernel] + animate_kernels + [compact_kernel]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

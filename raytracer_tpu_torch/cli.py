@@ -4,6 +4,8 @@ arguments and defaults, plus ``--device`` (``cuda`` by default; ``cpu``
 runs the plain PyTorch versions).
 
     raytracer-tpu-torch render --scene true_original
+    raytracer-tpu-torch animate --scene planets2 --frames 24
+    raytracer-tpu-torch animate --scene chandelier --tracer path --guide registry
     raytracer-tpu-torch train-ppo --timesteps 50000
     raytracer-tpu-torch train-sac --timesteps 50000
     raytracer-tpu-torch train-q --episodes 1000
@@ -21,8 +23,11 @@ runs the plain PyTorch versions).
 impl ``"kernel"``.  ``train-* --analyze`` prints the behaviour statistics
 and writes their CSV; the JAX CLI's figure beside them is not ported (the
 card's machine has no matplotlib), and ``rl-pipeline --cpu`` is
-``--device cpu``.  The JAX CLI's ``animate`` and ``interactive`` are not
-ported yet (ROADMAP.md).
+``--device cpu``.  ``animate`` renders its frames one by one
+(``render/animation.py``), where JAX maps one program over them; its path
+frames draw from a ``torch.Generator`` seeded with ``--seed``, so their
+noise is not JAX's.  The JAX CLI's ``interactive`` is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -69,6 +74,113 @@ def cmd_render(args):
     save_image(args.out, arr)
     print(f"rendered {w}x{h} in {dt:.2f}s -> {args.out} "
           f"({h * w / dt / 1e6:.2f} Mrays/s, {dev})")
+
+
+def _animate_scene(name, tracer, dev):
+    """``(scene, glights, plights, params)`` of a library scene or, path
+    tracer only, a template ``name[:variation]`` (emissive-sphere lit, no
+    global or point lights)."""
+    from .scene import library
+    from .scene.templates import TEMPLATES, generate_scene
+
+    if name in SCENES:
+        return getattr(library, f"{name}_scene")(device=dev)
+    tname, _, var = name.partition(":")
+    if tname not in TEMPLATES or (var and not var.isdigit()):
+        raise SystemExit(
+            f"unknown scene {name!r}; expected one of {sorted(SCENES)} or "
+            f"a template {sorted(TEMPLATES)} with an optional integer "
+            f"variation (cornell_box:7)")
+    if tracer != "path":
+        raise SystemExit(f"template scene {name!r} has no global/point "
+                         f"lights; use --tracer path")
+    scene, _ = generate_scene(tname, int(var) if var else 0, device=dev)
+    return scene, None, None, {"camera_position": (0.0, 0.5, 0.0),
+                               "max_bounces": 8,
+                               "background": (2.0, 2.0, 5.0)}
+
+
+def cmd_animate(args):
+    """A turntable: ``--frames`` look-at frames around the scene's focus,
+    written as frame_%03d.png, a contact sheet, an APNG and
+    animation_stats.json (the JAX CLI's files and keys)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from .core.device import resolve_device
+    from .render.animation import (camera_path_rays, render_path_frames,
+                                   render_whitted_frames, turntable)
+    from .utils.io import save_apng, save_image
+
+    dev = resolve_device(args.device)
+    scene, gl, pl, p = _animate_scene(args.scene, args.tracer, dev)
+    eyes, target, radius, y = turntable(
+        scene, p["camera_position"], args.frames, target=args.target,
+        radius=args.radius, y=args.y, sweep=args.sweep, device=dev)
+    bounces = args.bounces or p["max_bounces"]
+    extra = {}
+    t0 = time.perf_counter()
+    if args.tracer == "path":
+        guide_fn = None
+        if args.guide == "registry":
+            from .fb.registry import STUDENTS_DIR, guide_for
+            guide_fn = guide_for(args.scene, args.width, args.height,
+                                 STUDENTS_DIR)
+        elif args.guide:
+            from .fb.distill import DistilledGuide
+            guide_fn = DistilledGuide.load(args.guide).as_guide_fn()
+        frames, stats = render_path_frames(
+            scene, eyes, target, width=args.width, height=args.height,
+            spp=args.spp, max_bounces=bounces, fov=args.fov,
+            background=p.get("background", (2.0, 2.0, 5.0)),
+            guide_fn=guide_fn, fb_prob=1.0,
+            generator=torch.Generator(dev).manual_seed(args.seed),
+            device=dev)
+        st = stats.as_dict()
+        extra = {"tracer": "path", "spp": args.spp,
+                 "guided": bool(guide_fn),
+                 **{k: st[k] for k in ("total_rays", "light_hits",
+                                       "small_light_hits", "fb_used",
+                                       "fb_success")}}
+    else:
+        origins, dirs = camera_path_rays(eyes, target, args.width,
+                                         args.height, fov=args.fov)
+        frames = render_whitted_frames(scene, gl, pl, origins, dirs,
+                                       args.height, args.width,
+                                       max_bounces=bounces,
+                                       background=p["background"],
+                                       miss_colour=p.get("sky_colour"))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    arr = (np.clip(frames.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    for i in range(arr.shape[0]):
+        save_image(os.path.join(args.out_dir, f"frame_{i:03d}.png"), arr[i])
+    cols = min(args.frames, 6)
+    rows = -(-args.frames // cols)
+    sheet = np.zeros((rows * args.height, cols * args.width, 3), np.uint8)
+    for i in range(arr.shape[0]):
+        r, c = divmod(i, cols)
+        sheet[r * args.height:(r + 1) * args.height,
+              c * args.width:(c + 1) * args.width] = arr[i]
+    save_image(os.path.join(args.out_dir, "contact_sheet.png"), sheet)
+    save_apng(os.path.join(args.out_dir, "animation.png"), arr, fps=args.fps)
+    # Path tracer: the rays traced (PathStats); Whitted: primary rays.
+    rays = extra.get("total_rays") or args.frames * args.width * args.height
+    stats = {"frames": args.frames, "width": args.width,
+             "height": args.height, "bounces": bounces,
+             "wall_s": round(dt, 4),
+             "ms_per_frame": round(dt * 1e3 / args.frames, 3),
+             "mrays_per_s": round(rays / dt / 1e6, 2),
+             "target": [round(float(v), 4) for v in np.asarray(target)],
+             "radius": round(radius, 4), "y": round(y, 4), **extra}
+    with open(os.path.join(args.out_dir, "animation_stats.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+    print(json.dumps(stats))
 
 
 def _make_rl_env(device, variant="rl", max_bounces=5):
@@ -265,6 +377,35 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--width", type=int, default=800)
     r.add_argument("--height", type=int, default=600)
     r.add_argument("--multiple", type=int, default=None)
+
+    an = command("animate", cmd_animate)
+    an.add_argument("--scene", default="chandelier",
+                    help="library scene (true_original/planets2/marbles4/"
+                         "chandelier/custom) or, with --tracer path, a "
+                         "multi-scene template (cornell_box[:var])")
+    an.add_argument("--frames", type=int, default=12)
+    an.add_argument("--width", type=int, default=320)
+    an.add_argument("--height", type=int, default=240)
+    an.add_argument("--fov", type=float, default=60.0)
+    an.add_argument("--fps", type=float, default=10.0,
+                    help="APNG playback rate")
+    an.add_argument("--tracer", default="whitted",
+                    choices=["whitted", "path"])
+    an.add_argument("--spp", type=int, default=4,
+                    help="path tracer samples per pixel")
+    an.add_argument("--guide", default=None,
+                    help="path tracer FB guide: a student .npz, or "
+                         "'registry' for per-camera dispatch")
+    an.add_argument("--seed", type=int, default=0)
+    an.add_argument("--bounces", type=int, default=None)
+    an.add_argument("--radius", type=float, default=None,
+                    help="orbit radius (default: camera-target distance)")
+    an.add_argument("--y", type=float, default=None,
+                    help="camera height (default: the scene camera's y)")
+    an.add_argument("--sweep", type=float, default=6.283185307179586,
+                    help="arc in radians (default full turn)")
+    an.add_argument("--target", type=float, nargs=3, default=None)
+    an.add_argument("--out-dir", default="animation_out")
 
     for name, fn in [("train-ppo", cmd_train_ppo),
                      ("train-sac", cmd_train_sac)]:

@@ -94,7 +94,8 @@ def run_comparison(scene: Scene, *, camera_position, width: int = 200,
     ``reflective > 0`` rule; pass 0.9 for the complex script's.
     ``model_path``: a distilled student (``*.npz`` with ``__hidden__`` ->
     ``fb.distill.DistilledGuide``, bf16 as deployed), a full FB checkpoint
-    (``TrainedFBAgent``, f32), or None: the FB side then samples as the
+    (a native ``.npz`` or a reference ``.pth`` -> ``TrainedFBAgent``, f32),
+    or None: the FB side then samples as the
     traditional one with ``fb_prob=0`` (JAX's fallback).  ``warmup``: each
     side renders once before the timed renders; ``timing_iters``: best of
     that many timed renders, each ended by ``torch.cuda.synchronize()``.

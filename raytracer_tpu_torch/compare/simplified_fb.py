@@ -2,8 +2,8 @@
 
 Counterpart of ``raytracer_tpu/compare/simplified_fb.py``:
 
-* model autodiscovery under ``./fb_training_outputs`` (:128-145), native
-  ``.npz`` checkpoints (the ``.pth`` import is not ported);
+* model autodiscovery under ``./fb_training_outputs`` (:128-145): native
+  ``.npz`` checkpoints first, reference ``.pth`` accepted, as JAX's;
 * the notebook-shading approximation ``calculate_lighting_exact_original``
   (:197-306), shared with the output5 tracer (``trace/output5_style.py::
   _shade_level``);
@@ -39,12 +39,12 @@ from ..trace.output5_style import _shade_level, sweep
 
 
 def find_model(base: str = "./fb_training_outputs") -> Optional[Path]:
-    """The newest native checkpoint under the training outputs directory
-    (:128-145), or None."""
+    """The newest checkpoint under the training outputs directory
+    (:128-145; native ``.npz`` or reference ``.pth``), or None."""
     base = Path(base)
     if not base.exists():
         return None
-    cands = sorted(base.glob("**/*.npz"))
+    cands = sorted(base.glob("**/*.npz")) + sorted(base.glob("**/*.pth"))
     return max(cands, key=lambda p: p.stat().st_mtime) if cands else None
 
 

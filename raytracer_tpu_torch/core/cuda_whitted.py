@@ -93,7 +93,8 @@ def whitted_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
                         sweep: str = "plain",
                         counters: Optional[dict] = None) -> TraceResult:
     """Plain PyTorch version of the kernel, on any device, in the rays'
-    float dtype (float32 or float64): ``trace_whitted``'s level loop.
+    float dtype (float32 or float64): ``trace_whitted``'s level loop, every
+    level over the whole wavefront.
 
     ``sweep="kernel"`` takes each level's nearest hit from the nearest-hit
     kernel (float32).  ``counters``: optional dict of ints that gains the
@@ -101,119 +102,206 @@ def whitted_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,
     ``cuda_intersect.sweep_work`` counts it, ``mirror`` and ``glass``
     bounces, ``walk_steps``, ``walk_exits``), from which ``chip_smoke.py``
     counts the kernel's operations; it costs host reads."""
+    lanes, cols = _start(origins, dirs, suppress_id, table, bounces0,
+                         through0, counters)
+    for _ in range(max_bounces + 2):
+        if not bool((lanes["status"] == ACTIVE).any()):
+            break           # nothing left: later levels are no-ops
+        lanes = _level(lanes, table, cols, max_bounces=max_bounces,
+                       fast=fast, sweep=sweep, counters=counters)
+    return _result(lanes)
+
+
+def whitted_trace_compact(origins: torch.Tensor, dirs: torch.Tensor,
+                          suppress_id: Optional[torch.Tensor],
+                          table: SphereTable, *, max_bounces: int,
+                          fast: bool = False,
+                          bounces0: Optional[torch.Tensor] = None,
+                          through0: Optional[torch.Tensor] = None,
+                          sweep: str = "plain", min_bucket: int = 1024,
+                          counters: Optional[dict] = None) -> TraceResult:
+    """``whitted_trace_plain`` with the live lanes compacted between levels
+    (JAX ``trace_whitted_compact``): level 0 runs on the whole wavefront,
+    each later level on the lanes still active, gathered into a bucket of
+    ``max(min_bucket, the next power of two)`` lanes (at most the previous
+    level's), the padding inactive.  The per-lane arithmetic is the plain
+    level's, so every field equals ``whitted_trace_plain``'s bit for bit.
+    One host read a level besides the plain level's own (whether any lane
+    refracts): the counts of live and newly finished lanes, taken together
+    with the stable sort that lists both.  ``counters`` also gains
+    ``lanes``: ``(live, bucket)`` of each level."""
+    lanes, cols = _start(origins, dirs, suppress_id, table, bounces0,
+                         through0, counters)
+    R = origins.shape[0]
+    full = {k: v for k, v in lanes.items()
+            if k == "status" or k.startswith("res_")}
+    idx_map = torch.arange(R, device=origins.device)
+    valid = torch.ones((R,), dtype=torch.bool, device=origins.device)
+    live = R
+    for _ in range(max_bounces + 2):
+        if counters is not None:
+            counters.setdefault("lanes", []).append(
+                (live, idx_map.shape[0]))
+        lanes = _level(lanes, table, cols, max_bounces=max_bounces,
+                       fast=fast, sweep=sweep, counters=counters)
+        # 0: still active, 1: finished at this level, 2: padding.  A
+        # stable sort lists the active lanes, then the finished ones, each
+        # in lane order.
+        active = lanes["status"] == ACTIVE
+        group = torch.where(active, 0, torch.where(valid, 1, 2))
+        order = torch.sort(group, stable=True).indices
+        live, n_done = torch.bincount(group, minlength=3)[:2].tolist()
+        di = order[live:live + n_done]
+        for k in full:
+            full[k] = full[k].index_copy(0, idx_map[di],
+                                         lanes[k][di].to(full[k].dtype))
+        if live == 0:
+            break
+        bucket = max(min_bucket, 1 << max(live - 1, 1).bit_length())
+        bucket = min(bucket, idx_map.shape[0])
+        sel = order[:live]
+        pad = bucket - live
+        if pad:     # padding lanes: copies of lane 0, made inactive
+            sel = torch.cat([sel, sel.new_zeros(pad)])
+        valid = torch.arange(bucket, device=sel.device) < live
+        lanes = {k: v[sel] for k, v in lanes.items()}
+        lanes["status"] = torch.where(valid, lanes["status"], DONE_NONE)
+        idx_map = idx_map[sel]
+    return _result(full)
+
+
+def _start(origins, dirs, suppress_id, table, bounces0, through0, counters):
+    """The level loop's lanes at the camera entry: a dict of ``[R]``
+    tensors (ray, suppressed id, depth, status, the result so far and the
+    mirror fallback), and the table's columns in the rays' dtype."""
     dtype, dev = origins.dtype, origins.device
     R = origins.shape[0]
     i32 = torch.int32
-    ox, oy, oz = origins[:, 0], origins[:, 1], origins[:, 2]
     dx, dy, dz = vec.normalise_safe_c(dirs[:, 0], dirs[:, 1], dirs[:, 2])
-    sup = (torch.full((R,), NO_SUPPRESS, dtype=i32, device=dev)
-           if suppress_id is None else suppress_id.to(i32))
-    bounces = (torch.zeros((R,), dtype=i32, device=dev) if bounces0 is None
-               else bounces0.to(dev, i32))
-    through = (torch.zeros((R,), dtype=i32, device=dev) if through0 is None
-               else through0.to(dev, i32))
-    status = torch.full((R,), ACTIVE, dtype=i32, device=dev)
     zi = torch.zeros((R,), dtype=i32, device=dev)
     zf = torch.zeros((R,), dtype=dtype, device=dev)
-    res = {k: zi if k in ("idx", "bounces", "through") else zf
-           for k in _FIELDS}
-    fbr = dict(res)
-    fb_valid = torch.zeros((R,), dtype=torch.bool, device=dev)
+    lanes = dict(
+        ox=origins[:, 0], oy=origins[:, 1], oz=origins[:, 2],
+        dx=dx, dy=dy, dz=dz,
+        sup=(torch.full((R,), NO_SUPPRESS, dtype=i32, device=dev)
+             if suppress_id is None else suppress_id.to(i32)),
+        bounces=zi if bounces0 is None else bounces0.to(dev, i32),
+        through=zi if through0 is None else through0.to(dev, i32),
+        status=torch.full((R,), ACTIVE, dtype=i32, device=dev),
+        fb_valid=torch.zeros((R,), dtype=torch.bool, device=dev))
+    for k in _FIELDS:
+        z = zi if k in ("idx", "bounces", "through") else zf
+        lanes["res_" + k] = lanes["fb_" + k] = z
     if counters is not None:
         for k in ("levels", "sphere_tests", "front_sphere_tests",
                   "valid_sphere_tests", "mirror", "glass", "walk_steps",
                   "walk_exits"):
             counters.setdefault(k, 0)
 
-    rows = table.spec
-
     def col(k):
-        return torch.tensor([row[k] for row in rows], dtype=dtype,
+        return torch.tensor([row[k] for row in table.spec], dtype=dtype,
                             device=dev)
 
-    cx_t, cy_t, cz_t, r_t, ior_t = col(0), col(1), col(2), col(3), col(10)
-    is_mirror = torch.tensor(table.mirror, dtype=torch.bool, device=dev)
-    is_glass = torch.tensor(table.glass, dtype=torch.bool, device=dev)
+    cols = dict(cx=col(0), cy=col(1), cz=col(2), r=col(3), ior=col(10),
+                mirror=torch.tensor(table.mirror, dtype=torch.bool,
+                                    device=dev),
+                glass=torch.tensor(table.glass, dtype=torch.bool,
+                                   device=dev))
+    return lanes, cols
 
-    def select(mask, a, b):
-        return {k: torch.where(mask, a[k], b[k]) for k in b}
 
-    for _ in range(max_bounces + 2):
-        active = status == ACTIVE
-        if not bool(active.any()):     # nothing left: later levels are no-ops
-            break
-        if counters is not None:
-            counters["levels"] += int(active.sum())
-            work = sweep_work(torch.stack([ox, oy, oz], 1),
-                              torch.stack([dx, dy, dz], 1), sup, table,
-                              fast=fast, active=active)
-            for k, v in work.items():
-                counters[k] += v
-        if sweep == "kernel":
-            t, idx, found = nearest_hit(
-                torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1),
-                sup, table, fast=fast)
-            px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
-            nx, ny, nz = vec.normalise_safe_c(px - cx_t[idx], py - cy_t[idx],
-                                              pz - cz_t[idx])
-        else:
-            h = nearest_hit_c(ox, oy, oz, dx, dy, dz, rows, fast=fast,
-                              by_abs=False, suppress_id=sup)
-            t, idx, found = h.t, h.idx, h.found
-            px, py, pz, nx, ny, nz = h.px, h.py, h.pz, h.nx, h.ny, h.nz
-        here = dict(idx=idx, px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz, t=t,
-                    bounces=bounces, through=through)
+def _level(lanes, table, cols, *, max_bounces, fast, sweep, counters):
+    """One recursion level over ``lanes``; lanes not active pass through
+    unchanged.  Returns the new lanes."""
+    L = dict(lanes)
+    status, bounces, through = L["status"], L["bounces"], L["through"]
+    ox, oy, oz, dx, dy, dz, sup = (L[k] for k in ("ox", "oy", "oz", "dx",
+                                                  "dy", "dz", "sup"))
+    fb_valid = L["fb_valid"]
+    cx_t, cy_t, cz_t = cols["cx"], cols["cy"], cols["cz"]
+    active = status == ACTIVE
+    if counters is not None:
+        counters["levels"] += int(active.sum())
+        work = sweep_work(torch.stack([ox, oy, oz], 1),
+                          torch.stack([dx, dy, dz], 1), sup, table,
+                          fast=fast, active=active)
+        for k, v in work.items():
+            counters[k] += v
+    if sweep == "kernel":
+        t, idx, found = nearest_hit(
+            torch.stack([ox, oy, oz], 1), torch.stack([dx, dy, dz], 1),
+            sup, table, fast=fast)
+        px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
+        nx, ny, nz = vec.normalise_safe_c(px - cx_t[idx], py - cy_t[idx],
+                                          pz - cz_t[idx])
+    else:
+        h = nearest_hit_c(ox, oy, oz, dx, dy, dz, table.spec, fast=fast,
+                          by_abs=False, suppress_id=sup)
+        t, idx, found = h.t, h.idx, h.found
+        px, py, pz, nx, ny, nz = h.px, h.py, h.pz, h.nx, h.ny, h.nz
+    here = dict(idx=idx, px=px, py=py, pz=pz, nx=nx, ny=ny, nz=nz, t=t,
+                bounces=bounces, through=through)
 
-        # The chain fails on no hit or a spent budget: the deepest mirror
-        # hit if there is one, else none.
-        fail = active & (~found | (bounces > max_bounces))
-        res = select(fail & fb_valid, fbr, res)
-        status = torch.where(fail, torch.where(fb_valid, DONE_HIT, DONE_NONE),
-                             status)
-        live = active & ~fail
-        mirror = live & is_mirror[idx]
-        glass = live & ~mirror & is_glass[idx]
-        terminal = live & ~mirror & ~glass
-        if counters is not None:
-            counters["mirror"] += int(mirror.sum())
-            counters["glass"] += int(glass.sum())
-        res = select(terminal, here, res)
-        status = torch.where(terminal, DONE_HIT, status)
+    def select(mask, src, dst):
+        """``dst``'s fields (``res_`` or ``fb_``) from ``src`` where
+        ``mask``; ``src``: a lanes prefix or the level's ``here``."""
+        for k in _FIELDS:
+            a = here[k] if src == "here" else L[src + k]
+            L[dst + k] = torch.where(mask, a, L[dst + k])
 
-        # Mirror: record the fallback and bounce.
-        fb_valid = fb_valid | mirror
-        fbr = select(mirror, here, fbr)
-        rlx, rly, rlz = vec.reflect_c(dx, dy, dz, nx, ny, nz)
+    # The chain fails on no hit or a spent budget: the deepest mirror hit
+    # if there is one, else none.
+    fail = active & (~found | (bounces > max_bounces))
+    select(fail & fb_valid, "fb_", "res_")
+    status = torch.where(fail, torch.where(fb_valid, DONE_HIT, DONE_NONE),
+                         status)
+    live = active & ~fail
+    mirror = live & cols["mirror"][idx]
+    glass = live & ~mirror & cols["glass"][idx]
+    terminal = live & ~mirror & ~glass
+    if counters is not None:
+        counters["mirror"] += int(mirror.sum())
+        counters["glass"] += int(glass.sum())
+    select(terminal, "here", "res_")
+    status = torch.where(terminal, DONE_HIT, status)
 
-        # Glass: the walk through the sphere, skipped when no lane refracts.
-        if bool(glass.any()):
-            ok, epx, epy, epz, edx, edy, edz = _refract_walk_c(
-                dx, dy, dz, nx, ny, nz, px, py, pz, cx_t[idx], cy_t[idx],
-                cz_t[idx], r_t[idx], ior_t[idx], relevant=glass,
-                counters=counters)
-            trapped = glass & ~ok
-            res = select(trapped & fb_valid, fbr, res)
-            status = torch.where(trapped, torch.where(fb_valid, DONE_HIT,
-                                                      DONE_NONE), status)
-            glass = glass & ok
-        else:
-            epx, epy, epz, edx, edy, edz = px, py, pz, dx, dy, dz
+    # Mirror: record the fallback and bounce.
+    fb_valid = fb_valid | mirror
+    select(mirror, "here", "fb_")
+    rlx, rly, rlz = vec.reflect_c(dx, dy, dz, nx, ny, nz)
 
-        cont = mirror | glass
-        ox = torch.where(mirror, px, torch.where(glass, epx, ox))
-        oy = torch.where(mirror, py, torch.where(glass, epy, oy))
-        oz = torch.where(mirror, pz, torch.where(glass, epz, oz))
-        dx = torch.where(mirror, rlx, torch.where(glass, edx, dx))
-        dy = torch.where(mirror, rly, torch.where(glass, edy, dy))
-        dz = torch.where(mirror, rlz, torch.where(glass, edz, dz))
-        sup = torch.where(cont, table.ids[idx], sup)
-        bounces = torch.where(cont, bounces + 1, bounces)
-        through = torch.where(glass, through + 1, through)
+    # Glass: the walk through the sphere, skipped when no lane refracts.
+    if bool(glass.any()):
+        ok, epx, epy, epz, edx, edy, edz = _refract_walk_c(
+            dx, dy, dz, nx, ny, nz, px, py, pz, cx_t[idx], cy_t[idx],
+            cz_t[idx], cols["r"][idx], cols["ior"][idx], relevant=glass,
+            counters=counters)
+        trapped = glass & ~ok
+        select(trapped & fb_valid, "fb_", "res_")
+        status = torch.where(trapped, torch.where(fb_valid, DONE_HIT,
+                                                  DONE_NONE), status)
+        glass = glass & ok
+    else:
+        epx, epy, epz, edx, edy, edz = px, py, pz, dx, dy, dz
 
-    return TraceResult(hit=status == DONE_HIT, idx=res["idx"],
-                       point=torch.stack([res["px"], res["py"], res["pz"]],
-                                         -1),
-                       normal=torch.stack([res["nx"], res["ny"], res["nz"]],
-                                          -1),
-                       t=res["t"], bounces=res["bounces"],
-                       through=res["through"])
+    cont = mirror | glass
+    L.update(
+        ox=torch.where(mirror, px, torch.where(glass, epx, ox)),
+        oy=torch.where(mirror, py, torch.where(glass, epy, oy)),
+        oz=torch.where(mirror, pz, torch.where(glass, epz, oz)),
+        dx=torch.where(mirror, rlx, torch.where(glass, edx, dx)),
+        dy=torch.where(mirror, rly, torch.where(glass, edy, dy)),
+        dz=torch.where(mirror, rlz, torch.where(glass, edz, dz)),
+        sup=torch.where(cont, table.ids[idx], sup),
+        bounces=torch.where(cont, bounces + 1, bounces),
+        through=torch.where(glass, through + 1, through),
+        status=status, fb_valid=fb_valid)
+    return L
+
+
+def _result(lanes) -> TraceResult:
+    r = {k: lanes["res_" + k] for k in _FIELDS}
+    return TraceResult(hit=lanes["status"] == DONE_HIT, idx=r["idx"],
+                       point=torch.stack([r["px"], r["py"], r["pz"]], -1),
+                       normal=torch.stack([r["nx"], r["ny"], r["nz"]], -1),
+                       t=r["t"], bounces=r["bounces"], through=r["through"])

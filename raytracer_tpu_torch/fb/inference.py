@@ -3,8 +3,9 @@
 Counterpart of ``raytracer_tpu/fb/inference.py`` (``TrainedFBAgent``,
 ``small_light_indices``; FB/fb_vs_traditional_complex.py:147-256):
 
-* the networks from a native checkpoint (``utils/checkpoint.py``), or
-  seeded initial values;
+* the networks from a native checkpoint (``utils/checkpoint.py``), a
+  reference ``.pth`` (``utils/torch_import.py``), or seeded initial
+  values;
 * the **light prototype**: 5 random surface samples a small light (radius
   < 0.5), each seen along the to-camera direction, encoded; the mean
   latent, L2-normalised.  The samples come from
@@ -65,7 +66,8 @@ class AgentGuide:
 
 class TrainedFBAgent:
     """The full FB agent as a guide.  ``model_path``: a native ``.npz``
-    checkpoint, or None for seeded initial values (flax's initialisers,
+    checkpoint, a reference ``.pth`` (``fb_learner_state`` schema,
+    ``utils/torch_import.py``), or None for seeded initial values (flax's initialisers,
     drawn by a ``torch.Generator`` seeded with ``seed``); ``scene`` and
     ``small_light_idx`` give the prototype's lights; ``device``: ``cuda``
     by default."""
@@ -86,9 +88,12 @@ class TrainedFBAgent:
             self.loaded = False
         else:
             if str(model_path).endswith(".pth"):
-                raise ValueError("the .pth import (utils/torch_import.py) is "
-                                 "not ported; use a native .npz checkpoint")
-            nets = load_fb(model_path, self.config)[0]
+                from ..utils.torch_import import (import_fb_learner_state,
+                                                  load_torch_checkpoint)
+                nets = import_fb_learner_state(
+                    load_torch_checkpoint(model_path), self.config)
+            else:
+                nets = load_fb(model_path, self.config)[0]
             self.loaded = True
         self.encoder, self.forward_model, self.backward = (
             nets[n].to(dev).eval() for n in ("encoder", "forward",

@@ -15,8 +15,9 @@ identity (the learner's loss runs flax's modules deterministic too), and
 the single-token attention skips its query and key projections.  Products
 are ``torch.matmul``; the JAX package leaves them to XLA, outside any
 Pallas kernel.  Parameters carry no gradient until the learner
-(``fb/agent.py``) asks for one.  The ``Simple*`` family waits for the
-``.pth`` import.
+(``fb/agent.py``) asks for one.  The ``Simple*`` modules are the earlier
+"simple" FB family of the reference's ``fb_model_simple.pth``, read by
+``utils/torch_import.py``.
 """
 from __future__ import annotations
 
@@ -228,6 +229,64 @@ class BackwardModel(nn.Module):
     def forward(self, z_t: torch.Tensor, z_next: torch.Tensor):
         x = self.trunk(z_t, z_next)
         return self.action_mean(x), self.Dense_2(x)
+
+
+class SimpleEncoder(nn.Module):
+    """The earlier "simple" family's encoder (``fb_model_simple.pth``,
+    net.0/2/4: 22 -> 128 -> 128 -> 2·z_dim): a ReLU MLP emitting
+    ``mean ‖ log_var``."""
+
+    def __init__(self, z_dim: int = 32, hidden_dim: int = 128,
+                 obs_dim: int = 22):
+        super().__init__()
+        self.Dense_0 = Dense(obs_dim, hidden_dim)
+        self.Dense_1 = Dense(hidden_dim, hidden_dim)
+        self.Dense_2 = Dense(hidden_dim, 2 * z_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu_(self.Dense_0(x))
+        x = torch.relu_(self.Dense_1(x))
+        return self.Dense_2(x)
+
+
+class SimpleForwardModel(nn.Module):
+    """``(z ‖ action)`` -> hidden -> hidden, then one mean-only next-z
+    prediction a head."""
+
+    def __init__(self, z_dim: int = 32, hidden_dim: int = 128,
+                 num_heads: int = 2, action_dim: int = 2):
+        super().__init__()
+        self.num_heads = num_heads
+        self.Dense_0 = Dense(z_dim + action_dim, hidden_dim)
+        self.Dense_1 = Dense(hidden_dim, hidden_dim)
+        for h in range(num_heads):
+            self.add_module(f"Dense_{2 + h}", Dense(hidden_dim, z_dim))
+
+    def forward(self, z: torch.Tensor, action: torch.Tensor
+                ) -> List[torch.Tensor]:
+        x = torch.cat([z, action], dim=-1)
+        x = torch.relu_(self.Dense_0(x))
+        x = torch.relu_(self.Dense_1(x))
+        return [getattr(self, f"Dense_{2 + h}")(x)
+                for h in range(self.num_heads)]
+
+
+class SimpleBackwardModel(nn.Module):
+    """``(z_t ‖ z_next)`` -> hidden -> hidden -> ``tanh`` action."""
+
+    def __init__(self, hidden_dim: int = 64, action_dim: int = 2,
+                 z_dim: int = 32):
+        super().__init__()
+        self.Dense_0 = Dense(2 * z_dim, hidden_dim)
+        self.Dense_1 = Dense(hidden_dim, hidden_dim)
+        self.Dense_2 = Dense(hidden_dim, action_dim)
+
+    def forward(self, z_t: torch.Tensor, z_next: torch.Tensor
+                ) -> torch.Tensor:
+        x = torch.cat([z_t, z_next], dim=-1)
+        x = torch.relu_(self.Dense_0(x))
+        x = torch.relu_(self.Dense_1(x))
+        return torch.tanh(self.Dense_2(x))
 
 
 def make_networks(cfg: FBConfig):

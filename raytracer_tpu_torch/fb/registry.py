@@ -5,7 +5,7 @@ table.  Students are camera-distribution-specific: on the chandelier scene
 the all-around student wins at every aspect, the 2:1 specialist only at the
 2:1 aspect (the JAX package's measurements, recorded there).  The caller
 names the directory that holds the checkpoints; ``STUDENTS_DIR`` holds
-byte-equal copies of the two chandelier students.
+byte-equal copies of every student the table names (``models/``'s).
 """
 from __future__ import annotations
 

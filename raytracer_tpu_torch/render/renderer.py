@@ -11,11 +11,19 @@ Misses take ``miss_colour`` (Marbles 4's sky) and hits are shaded on
 ``impl``: ``"kernel"`` traces through the whole-trace Whitted kernel and
 sends the shadow sweeps through the nearest-hit kernel (float32; float64
 raises); ``"plain"`` runs plain PyTorch in float32 or float64 (the
-reference-parity goldens run float64 this way); ``"auto"`` is ``"kernel"``
-for rays on ``cuda`` and ``"plain"`` for rays on the CPU.  The JAX
-package's ``impl="pallas"`` maps to ``"kernel"`` and ``"fused"`` to
-``"plain"``; ``sweep="kernel"`` (with ``impl="plain"``) is its
-``use_pallas=True``.
+reference-parity goldens run float64 this way); ``"compact"`` traces the
+plain level on the live lanes only, compacted between levels, each level's
+sweep and the shadow sweeps the nearest-hit kernel on ``cuda`` and plain on
+the CPU (one host read a level; the image equals ``"plain"``'s bit for
+bit; it is JAX's API, kept for parity: on the card the whole-trace kernel
+is several times faster, PERF.md §5); ``"auto"`` is ``"kernel"`` for rays on ``cuda`` and ``"plain"`` for
+rays on the CPU.  The JAX package's ``impl="pallas"`` maps to ``"kernel"``
+and ``"fused"`` to ``"plain"``; ``sweep="kernel"`` (with ``impl="plain"``)
+is its ``use_pallas=True``.
+
+``shade_flat`` is the trace-and-shade body of a flat wavefront, shared
+with the frame renderer (``render/animation.py``) and the sharded renders
+(``parallel/mesh.py``), as JAX's ``_shade_flat`` is.
 """
 from __future__ import annotations
 
@@ -37,6 +45,46 @@ def material_flags(scene: Scene):
             bool((scene.reflective == 1.0).any()))
 
 
+def shade_flat(scene: Scene, glights: GlobalLights, plights: PointLights,
+               origins: torch.Tensor, dirs: torch.Tensor, *,
+               max_bounces: int, background, miss_colour,
+               enable_glass: bool, enable_mirror: bool, impl: str = "auto",
+               sweep: str = "plain") -> torch.Tensor:
+    """Flat ``[R, 3]`` reference-unit shading of a ray wavefront on the
+    rays' device (the scene and lights move there): hits shaded on
+    ``background``, misses ``miss_colour`` (None: the background)."""
+    dev = origins.device
+    if impl == "auto":
+        impl = "kernel" if dev.type == "cuda" else "plain"
+    if impl not in ("kernel", "plain", "compact"):
+        raise ValueError(f"unknown impl {impl!r}")
+    scene, glights, plights = scene.to(dev), glights.to(dev), plights.to(dev)
+    background = tuple(float(b) for b in background)
+    miss = torch.tensor(background if miss_colour is None else
+                        tuple(float(c) for c in miss_colour),
+                        dtype=origins.dtype, device=dev)
+    res = trace_whitted(scene, origins, dirs, max_bounces,
+                        enable_glass=enable_glass,
+                        enable_mirror=enable_mirror, impl=impl, sweep=sweep)
+    # Compact shades through the nearest-hit kernel, as its levels sweep.
+    shade_impl = ("plain" if impl == "plain"
+                  or (impl == "compact" and dev.type != "cuda")
+                  else "kernel")
+    rgb = terminal_rgb(scene, glights, plights, res, background,
+                       impl=shade_impl)
+    return torch.where(res.hit[:, None], rgb, miss[None, :])
+
+
+def finish(flat: torch.Tensor, height: int, width: int,
+           mode: str) -> torch.Tensor:
+    """The first ``height * width`` shaded rays as an ``[H, W, 3]`` image in
+    ``mode`` ("unit": ``min(1, c/255)``; "raw")."""
+    img = flat[:height * width].reshape(height, width, 3)
+    if mode == "unit":
+        return torch.clamp_max(div_scalar(img, 255.0), 1.0)
+    return img
+
+
 def render_whitted(scene: Scene, glights: GlobalLights, plights: PointLights,
                    origins: torch.Tensor, dirs: torch.Tensor, height: int,
                    width: int, *, max_bounces: int = 5,
@@ -54,33 +102,16 @@ def render_whitted(scene: Scene, glights: GlobalLights, plights: PointLights,
     rays form the image (a padded wavefront)."""
     if mode not in ("unit", "raw"):
         raise ValueError(f"unknown mode {mode!r}")
-    dev = origins.device
-    if impl == "auto":
-        impl = "kernel" if dev.type == "cuda" else "plain"
-    if impl not in ("kernel", "plain"):
-        raise ValueError(f"unknown impl {impl!r}")
     n = origins.shape[0]
     n_out = n if n_valid is None else n_valid
     if n_out != height * width:
         raise ValueError(f"n_valid/ray count {n_out} != {height}x{width}")
-    scene, glights, plights = scene.to(dev), glights.to(dev), plights.to(dev)
     enable_glass, enable_mirror = material_flags(scene)
-    background = tuple(float(b) for b in background)
-    miss = torch.tensor(background if miss_colour is None else
-                        tuple(float(c) for c in miss_colour),
-                        dtype=origins.dtype, device=dev)
-
-    def shade(o, d):
-        res = trace_whitted(scene, o, d, max_bounces,
-                            enable_glass=enable_glass,
-                            enable_mirror=enable_mirror, impl=impl,
-                            sweep=sweep)
-        rgb = terminal_rgb(scene, glights, plights, res, background,
-                           impl=impl)
-        return torch.where(res.hit[:, None], rgb, miss[None, :])
-
+    kw = dict(max_bounces=max_bounces, background=background,
+              miss_colour=miss_colour, enable_glass=enable_glass,
+              enable_mirror=enable_mirror, impl=impl, sweep=sweep)
     if chunk_rays is None or chunk_rays >= n:
-        flat = shade(origins, dirs)
+        flat = shade_flat(scene, glights, plights, origins, dirs, **kw)
     else:
         parts = []
         for i in range(0, n, chunk_rays):
@@ -89,9 +120,6 @@ def render_whitted(scene: Scene, glights: GlobalLights, plights: PointLights,
             if pad:                        # edge padding, as JAX pads
                 o = torch.cat([o, o[-1:].expand(pad, 3)])
                 d = torch.cat([d, d[-1:].expand(pad, 3)])
-            parts.append(shade(o, d))
+            parts.append(shade_flat(scene, glights, plights, o, d, **kw))
         flat = torch.cat(parts)
-    img = flat[:n_out].reshape(height, width, 3)
-    if mode == "unit":
-        return torch.clamp_max(div_scalar(img, 255.0), 1.0)
-    return img
+    return finish(flat, height, width, mode)

@@ -18,6 +18,13 @@ only); ``impl="plain"`` runs the plain level loop
 and may resume a chain (``bounces0``/``through0``).  ``sweep="kernel"``
 sends each plain level's sweep through the nearest-hit kernel
 (``core/cuda_intersect.py``), as ``use_pallas=True`` does in JAX.
+``impl="compact"`` (JAX ``trace_whitted_compact``) runs the plain level
+on the live lanes only, compacted between levels
+(``whitted_trace_compact``): its sweep is the nearest-hit kernel for rays
+on ``cuda`` and the plain sweep on the CPU, and every field equals
+``impl="plain"``'s bit for bit.  It is JAX's API, kept for parity: on the
+card ``impl="kernel"`` traces the same frame several times faster
+(PERF.md §5).
 """
 from __future__ import annotations
 
@@ -112,7 +119,8 @@ def trace_whitted(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
                   through0: Optional[torch.Tensor] = None,
                   enable_glass: bool = True, enable_mirror: bool = True, *,
                   impl: str = "kernel", sweep: str = "plain",
-                  precision: str = "exact") -> TraceResult:
+                  precision: str = "exact",
+                  min_bucket: int = 1024) -> TraceResult:
     """Trace ``[R]`` rays to their Whitted termini.
 
     ``origins``/``dirs`` ``[R, 3]`` in the scene's float dtype, on its
@@ -121,15 +129,19 @@ def trace_whitted(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
     last two).  ``enable_glass``/``enable_mirror`` False treat the
     scene's glass / mirror spheres as terminal (``material_flags`` says
     when a scene has none).  ``precision="fast"``: the ``d2 <= r*r`` hit
-    test of the TPU kernels in place of ``sqrt(d2) <= r``."""
+    test of the TPU kernels in place of ``sqrt(d2) <= r``.
+    ``min_bucket``: the smallest compacted wavefront (``"compact"``)."""
     if max_bounces < 0:
         raise ValueError(f"max_bounces must be >= 0, got {max_bounces}")
-    if impl not in ("kernel", "plain"):
+    if impl not in ("kernel", "plain", "compact"):
         raise ValueError(f"unknown impl {impl!r}")
     if sweep not in ("kernel", "plain"):
         raise ValueError(f"unknown sweep {sweep!r}")
     if precision not in ("exact", "fast"):
         raise ValueError(f"unknown precision {precision!r}")
+    if impl == "compact" and sweep != "plain":
+        raise ValueError("impl='compact' picks its sweep by the rays' "
+                         "device; sweep='kernel' goes with impl='plain'")
     if impl == "kernel" and (bounces0 is not None or through0 is not None
                              or sweep != "plain"):
         raise ValueError("the Whitted kernel traces from the camera entry: "
@@ -151,6 +163,11 @@ def trace_whitted(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
     if impl == "kernel":
         return cuda_whitted.whitted_trace(origins, dirs, suppress_id, table,
                                           **kw)
+    if impl == "compact":
+        return cuda_whitted.whitted_trace_compact(
+            origins, dirs, suppress_id, table, bounces0=bounces0,
+            through0=through0, min_bucket=min_bucket,
+            sweep="kernel" if dev.type == "cuda" else "plain", **kw)
     return cuda_whitted.whitted_trace_plain(
         origins, dirs, suppress_id, table, bounces0=bounces0,
         through0=through0, sweep=sweep, **kw)

@@ -8,6 +8,7 @@ Jitted, XLA turns the image's ``/ 255`` into a multiply by the
 reciprocal, and the CLI's truncation to 8 bits can move a pixel by one
 step."""
 import argparse
+import contextlib
 import json
 import tomllib
 from pathlib import Path
@@ -52,6 +53,16 @@ ARGVS = [
     ["rl-pipeline"],
     ["rl-pipeline", "--algo", "ppo", "--timesteps", "9", "--seed", "1",
      "--out", "r.npz", "--cpu", "--tensorboard-log", "tb"],
+    ["animate"],
+    ["animate", "--scene", "planets2", "--frames", "24", "--width", "400",
+     "--height", "300"],
+    ["animate", "--scene", "chandelier", "--tracer", "path", "--guide",
+     "registry", "--frames", "12", "--width", "200", "--height", "100",
+     "--spp", "4", "--bounces", "8"],
+    ["animate", "--scene", "cornell_box:7", "--tracer", "path", "--guide",
+     "s.npz", "--seed", "3", "--radius", "2.5", "--y", "1", "--sweep",
+     "3.14", "--target", "0", "1", "2", "--fps", "5", "--fov", "45",
+     "--out-dir", "o"],
 ]
 RL_COMMANDS = {
     "train-ppo": ["--timesteps", "100", "--out", "ppo.npz", "--analyze"],
@@ -68,7 +79,7 @@ def jax_args(monkeypatch, argv):
     command functions and compilation-cache setup stubbed out)."""
     seen = {}
     monkeypatch.setattr(jax_cli, "_enable_compilation_cache", lambda: None)
-    for name in ("cmd_render", "cmd_train_fb", "cmd_compare",
+    for name in ("cmd_render", "cmd_animate", "cmd_train_fb", "cmd_compare",
                  "cmd_experiment", "cmd_train_ppo", "cmd_train_sac",
                  "cmd_train_q", "cmd_demo", "cmd_rl_pipeline"):
         monkeypatch.setattr(jax_cli, name,
@@ -90,9 +101,8 @@ def test_commands_parse_as_jax(monkeypatch, argv):
 def test_device_option_and_unported_commands():
     args = cli.build_parser().parse_args(["experiment", "--device", "cpu"])
     assert args.device == "cpu"
-    for name in ("animate", "interactive"):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args([name])
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["interactive"])
 
 
 @pytest.mark.parametrize("command", sorted(RL_COMMANDS))
@@ -201,3 +211,89 @@ def test_run_logger_and_csv_match_jax(tmp_path):
             == (tmp_path / "jax.csv").read_bytes())
     metrics.write_csv(tmp_path / "empty.csv", [])
     assert (tmp_path / "empty.csv").read_text() == ""
+
+
+ANIMATE = {
+    "whitted": ["--scene", "custom", "--frames", "2", "--width", "16",
+                "--height", "12"],
+    "path": ["--scene", "chandelier", "--tracer", "path", "--frames", "2",
+             "--width", "16", "--height", "8", "--spp", "1", "--bounces",
+             "2"],
+}
+
+
+@pytest.mark.parametrize("tracer", sorted(ANIMATE))
+def test_animate_writes_jax_files(tmp_path, capsys, tracer):
+    """``animate --device cpu`` and the JAX CLI's ``cmd_animate`` on the
+    same arguments: the same files and ``animation_stats.json`` keys (the
+    shared ones equal, but the times); Whitted frames byte-equal to JAX's
+    run op by op with 64-bit mode off (path frames draw other noise)."""
+    ours, theirs = tmp_path / "port", tmp_path / "jax"
+    cli.main(["animate", *ANIMATE[tracer], "--out-dir", str(ours),
+              "--device", "cpu"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    ns = vars(cli.build_parser().parse_args(
+        ["animate", *ANIMATE[tracer], "--out-dir", str(theirs)]))
+    for k in ("device", "fn", "cmd"):
+        ns.pop(k)
+    with jax.enable_x64(False), contextlib.ExitStack() as stack:
+        if tracer == "whitted":          # op by op: the PNG bytes
+            stack.enter_context(jax.disable_jit())
+        jax_cli.cmd_animate(argparse.Namespace(**ns))
+    files = sorted(p.name for p in ours.iterdir())
+    assert files == sorted(p.name for p in theirs.iterdir())
+    assert {"frame_000.png", "frame_001.png", "contact_sheet.png",
+            "animation.png", "animation_stats.json"} == set(files)
+    got = json.loads((ours / "animation_stats.json").read_text())
+    want = json.loads((theirs / "animation_stats.json").read_text())
+    assert set(got) == set(want)
+    for k in ("frames", "width", "height", "bounces", "target", "radius",
+              "y", "tracer", "spp", "guided"):
+        assert got.get(k) == want.get(k), k
+    if tracer == "whitted":
+        for name in ("frame_000.png", "frame_001.png", "contact_sheet.png",
+                     "animation.png"):
+            assert (ours / name).read_bytes() == (theirs / name).read_bytes()
+    else:
+        assert got["total_rays"] > 0 and not got["guided"]
+    assert printed == got
+
+
+def test_animate_template_scene(tmp_path):
+    """A template scene animates through the path tracer with the
+    registry's student (the cornell copy in ``fb/students/``); Whitted on a
+    template, and an unknown scene, end the command."""
+    out = tmp_path / "cornell"
+    cli.main(["animate", "--scene", "cornell_box:1007", "--tracer", "path",
+              "--guide", "registry", "--frames", "2", "--width", "16",
+              "--height", "8", "--spp", "1", "--bounces", "2", "--out-dir",
+              str(out), "--device", "cpu"])
+    stats = json.loads((out / "animation_stats.json").read_text())
+    assert stats["guided"] and stats["total_rays"] > 0
+    for argv in (["--scene", "cornell_box:1007"],
+                 ["--scene", "nope", "--tracer", "path"]):
+        with pytest.raises(SystemExit):
+            cli.main(["animate", *argv, "--out-dir", str(out), "--device",
+                      "cpu"])
+
+
+def test_profiling_utilities(tmp_path, capsys):
+    """``utils/profiling.py``: ``Timer`` reports as JAX's does, ``progress``
+    yields every item, and ``device_trace`` writes a Chrome trace of the
+    block (here the CPU's activity)."""
+    from raytracer_tpu.utils import profiling as jax_profiling
+    from raytracer_tpu_torch.utils import profiling
+
+    with profiling.Timer("frame", rays=2_000_000) as t:
+        torch.ones(1000).sum()
+    with jax_profiling.Timer("frame", rays=2_000_000) as jt:
+        pass
+    jt.elapsed = t.elapsed
+    assert t.elapsed > 0 and t.report() == jt.report()
+    assert t.rays_per_second == pytest.approx(2e6 / t.elapsed)
+    assert list(profiling.progress(range(5), desc="x")) == list(range(5))
+    with profiling.device_trace(str(tmp_path / "trace")) as prof:
+        torch.ones((64, 64)) @ torch.ones((64, 64))
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert any("mm" in e.key for e in prof.key_averages())

@@ -27,7 +27,10 @@ from raytracer_tpu_torch.fb.distill import (DistilledGuide, StudentGuide,
                                             state_dict_from_params)
 
 ROOT = Path(__file__).resolve().parents[1]
-STUDENTS = ("fb_chandelier_distilled.npz", "fb_chandelier_distilled_2to1.npz")
+STUDENTS = ("fb_chandelier_distilled.npz", "fb_chandelier_distilled_2to1.npz",
+            "fb_cornell_distilled.npz", "fb_many_lights_distilled.npz",
+            "fb_occluded_distilled.npz", "fb_glass_gallery_distilled.npz",
+            "fb_simple_distilled.npz", "fb_mirror_maze_distilled.npz")
 
 
 def _obs(n=65536, seed=1):
@@ -125,7 +128,10 @@ def test_registry_table_and_choices():
         "fb_chandelier_distilled.npz"
     assert Path(registry.model_path_for("complex", 800, 600, d)).name == \
         "fb_complex_distilled.npz"
-    assert registry.model_path_for("cornell_box", 800, 600, d) is None
+    assert Path(registry.model_path_for("cornell_box", 800, 600, d)).name \
+        == "fb_cornell_distilled.npz"
+    assert registry.model_path_for("cornell_box", 800, 600,
+                                   ROOT / "tests") is None
     assert registry.model_path_for("nowhere", 800, 600, d) is None
     assert registry.guide_for("nowhere", 800, 600, d) is None
     g = registry.guide_for("chandelier", 800, 600, d)

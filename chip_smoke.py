@@ -68,6 +68,16 @@ just after:
   shards of the one card (sharded); a reference-schema .pth at FBConfig()'s
   width through TrainedFBAgent against its .npz twin (pth_import); and the
   CLI's animate end to end (cli_animate).
+* the rest of the RL track and the recipes: the shaped env
+  (agents/adaptive.py) at the rl-pipeline env over 2,048 episodes with the
+  shipped PPO's, uniform and light-seeking actions, kernel route against
+  plain route, every reachable shaping term counted (rl_shaped);
+  train_with_curriculum over dynamic_scene's phases at 800x600 with PPO
+  and SAC, the parameter transfer bit for bit (rl_curriculum); the CLI's
+  interactive menu, every option and mode, and its integration example
+  (interactive); ship_models train-chandelier, distill --sharpen and eval,
+  and ship_rl ppo-sweep, cut to size (ship_tools); and the flows that draw
+  matplotlib figures, with or without matplotlib (figures).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -81,8 +91,11 @@ line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA
 device it exits 1 and prints no result.
 """
+import contextlib
 import copy
+import io
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -96,6 +109,8 @@ import torch
 
 from raytracer_tpu_torch import cli
 from raytracer_tpu_torch.agents import SHIPPED_DIR
+from raytracer_tpu_torch.agents.adaptive import (AdaptiveRewardRayTracerEnv,
+                                                 train_with_curriculum)
 from raytracer_tpu_torch.agents.ppo import (PPOConfig, PPOTrainer,
                                             clip_by_global_norm_)
 from raytracer_tpu_torch.agents.sac import SACConfig, SACTrainer
@@ -107,7 +122,8 @@ from raytracer_tpu_torch.compare.workbench import (compare_rl_vs_random,
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
                                       cuda_whitted, native, vec)
 from raytracer_tpu_torch.env.raytracer_env import RayTracerEnv
-from raytracer_tpu_torch.env.scenes import training_scene_complete
+from raytracer_tpu_torch.env.scenes import (dynamic_scene,
+                                            training_scene_complete)
 from raytracer_tpu_torch.compare.experiment import (CONFIG_MODES,
                                                     CustomSceneExperiment)
 from raytracer_tpu_torch.compare.harness import (chandelier_comparison,
@@ -137,7 +153,10 @@ from raytracer_tpu_torch.scene import library
 from raytracer_tpu_torch.scene.complex import (create_camera_for_scene,
                                                create_complex_scene)
 from raytracer_tpu_torch.scene.library import chandelier_scene
-from raytracer_tpu_torch.tools import level_edges, sweep_edges
+from raytracer_tpu_torch.tools import (level_edges, ship_models, ship_rl,
+                                       sweep_edges)
+from raytracer_tpu_torch.tools.shaping_edges import (
+    TERMS as SHAPING_TERMS, light_seeking_actions, shaping_terms)
 from raytracer_tpu_torch.trace.path import (emissive_indices, scene_spec,
                                             trace_path)
 from raytracer_tpu_torch.trace.output5_style import METHODS as O5_METHODS
@@ -303,6 +322,19 @@ RL_PPO_HITS, RL_RANDOM_HITS = 0.14404296875, 0.0966796875
 RL_SIGMAS = 4.0
 RL_PPO_ITERS, RL_SAC_ITERS, RL_SAC_UPDATES = 3, 4, 64
 RL_RENDER_BOUNCES = 5
+# The rest of the RL track and the recipes.  rl_shaped: the shaped env at
+# ppo_train_to_win's env (the rl-pipeline env above), its light ids 99 and
+# 100.  rl_curriculum: the JAX CLI's interactive mode 2 envs
+# (dynamic_scene phases 1-3 at 800x600, fov 90, 5 bounces), CUR_STEPS a
+# phase.  ship_tools: train-chandelier cut from 160 scenes of 200 steps to
+# ST_SCENES of ST_STEPS in the same three chunks, the student distilled
+# from it at ST_FRAMES frames and ST_EPOCHS epochs, and ppo-sweep at
+# --scale ST_SWEEP_SCALE (the script's --quick scales by 0.25 whatever
+# --scale says).
+CUR_W, CUR_H, CUR_FOV, CUR_BOUNCES, CUR_STEPS = 800, 600, 90, 5, 5200
+IT_STEPS = 256
+ST_SCENES, ST_STEPS, ST_FRAMES, ST_EPOCHS = 8, 50, 2, 10
+ST_SWEEP_SCALE = 0.02
 
 # level_edges: seeded scenes on the edges of the level's exact rewrites
 # (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
@@ -3395,6 +3427,398 @@ def level_edges_phase(dev):
           f"{[c for c in cells if not c['ok']]}")
 
 
+# --- The rest of the RL track (the shaped env, the curriculum), the CLI's
+# --- interactive menu, the recipes and the figures. ------------------------
+
+@contextlib.contextmanager
+def in_dir(path):
+    """Work in ``path`` (made afresh) and come back."""
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    here = os.getcwd()
+    os.chdir(path)
+    try:
+        yield path
+    finally:
+        os.chdir(here)
+
+
+def shaped_episode(env, pixel, act_fn):
+    """One shaped episode of ``env`` on ``pixel``, each step's action from
+    ``act_fn(t, state, obs)``: the actions and, per call, the outputs
+    (obs; then obs, reward, terminated, done, both counters, total
+    reward)."""
+    s, o = env.reset(pixel.shape[0], pixel=pixel)
+    outs, acts = [o], []
+    for t in range(env.max_bounces + 2):
+        a = act_fn(t, s, o)
+        s, o, r, term, _ = env.step(s, a)
+        acts.append(a)
+        outs += [o, r, term, s.done, s.consecutive_light_hits,
+                 s.total_light_hits, s.total_reward]
+    return acts, outs
+
+
+def rl_shaped_phase(dev, card, launches):
+    """Phase rl_shaped: the shaped env (agents/adaptive.py) at
+    ppo_train_to_win's env over 2,048 episodes, one with the shipped PPO's
+    actions and one with uniform actions, through the kernel route (the
+    Whitted kernel at reset, the nearest-hit kernel a level of each step)
+    and the plain route on the same actions: obs, rewards, done flags,
+    counters and totals bit for bit.  A third episode takes light-seeking
+    actions (tools/shaping_edges.py) so that finished lanes rest on lights.
+    The count of each shaping term that fired; a shaped and a base step's
+    ms (CUDA events: a step reads the card once a level, so its launches
+    cannot queue behind a spin kernel) and the step's nearest-hit launches
+    replayed with queued_ms."""
+    t0 = time.perf_counter()
+    env_k = AdaptiveRewardRayTracerEnv(rl_env("kernel", dev), (99, 100))
+    env_p = AdaptiveRewardRayTracerEnv(rl_env("plain", dev), (99, 100))
+    ppo = load_policy(SHIPPED_DIR / "ppo_raytracer.npz", env_k.env)
+    gen = torch.Generator(dev).manual_seed(SEED + 90)
+    pixel = env_k.draw_pixels(RL_EPISODES, gen)
+    uniform = random_actions(env_k.env, RL_EPISODES, gen)
+    kinds = {
+        "ppo": lambda t, s, o: ppo.predict(o),
+        "uniform": lambda t, s, o: uniform[t],
+        "light_seeking": lambda t, s, o: light_seeking_actions(
+            env_k, s, uniform[t])[0]}
+    report, equal_all, terms_all = {}, True, dict.fromkeys(SHAPING_TERMS, 0)
+    counts = {}
+    for kind, act_fn in kinds.items():
+        reset_counts()
+        acts, outs_k = shaped_episode(env_k, pixel, act_fn)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        if kind != "light_seeking":      # its action search steps the env
+            add_launches(counts, c)
+        _, outs_p = shaped_episode(env_p, pixel, lambda t, s, o: acts[t])
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(outs_k, outs_p))
+        equal_all &= equal
+        terms = dict.fromkeys(SHAPING_TERMS, 0)
+        s, _ = env_k.reset(RL_EPISODES, pixel=pixel)
+        for a in acts:
+            ns, _, _, _, _ = env_k.step(s, a)
+            for k, v in shaping_terms(env_k, s, a, ns).items():
+                terms[k] += v
+            s = ns
+        for k, v in terms.items():
+            terms_all[k] += v
+        report[kind] = {"kernel_vs_plain_bit_equal": equal,
+                        "terms_fired": terms, "launches": c,
+                        "mean_total_reward": float(outs_k[-1].mean()),
+                        "total_light_hits": int(outs_k[-2].sum())}
+    add_launches(launches, counts)
+    # Step times on one state, mean of 10 (CUDA events), shaped and base.
+    s0, o0 = env_k.reset(RL_EPISODES, pixel=pixel)
+    a0 = ppo.predict(o0)
+    shaped_ms = cuda_ms(lambda: env_k.step(s0, a0), 10)
+    base_ms = cuda_ms(lambda: env_k.env.step(s0.env, a0), 10)
+    nh_calls = nearest_hit_calls(lambda: env_k.step(s0, a0))
+    nh_err, nh_equal = sweep_vs_plain(nh_calls)
+    nh_queued = queued_ms(lambda: [cuda_intersect.nearest_hit(*a, **kw)
+                                   for a, kw, _ in nh_calls])
+    reachable = [k for k in SHAPING_TERMS if k != "miss_rewrite"]
+    emit({"phase": "rl_shaped", **card,
+          "env": f"training_scene_complete {RL_W}x{RL_H} fov {RL_FOV}, "
+                 f"{RL_BOUNCES} bounces, rl, shaped (light ids 99, 100)",
+          "episodes": RL_EPISODES, **report, "terms_fired_total": terms_all,
+          "miss_rewrite_note": "unreachable: the base RL step rewards a "
+                               "pre-move miss -1.0 (0.0 once done)",
+          "shaped_step_ms": shaped_ms, "base_step_ms": base_ms,
+          "step_nearest_hit_launches": len(nh_calls),
+          "step_nearest_hit_queued_ms": nh_queued,
+          "step_sweeps_found_idx_equal": nh_equal,
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    check(equal_all, "rl_shaped: the kernel route differs from the plain "
+          "route")
+    check(all(terms_all[k] > 0 for k in reachable)
+          and terms_all["miss_rewrite"] == 0,
+          f"rl_shaped: terms fired {terms_all}")
+    check(nh_equal, "rl_shaped: a step's nearest-hit launch differs from "
+          "its plain version")
+    check(counts["whitted_trace"] == 2 and counts["nearest_hit"]
+          >= 2 * (RL_BOUNCES + 2), f"rl_shaped: launches {counts}")
+
+
+def transfer_recorder(base, log):
+    """``base`` recording its parameters after ``set_parameters`` and after
+    ``train``, and each phase's train seconds."""
+    class Recorded(base):
+        def set_parameters(self, params):
+            super().set_parameters(params)
+            log.append(("set", self.get_parameters()))
+
+        def train(self, steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = super().train(steps)
+            torch.cuda.synchronize()
+            # PPO reports iterations; SAC its active env steps.
+            taken = out.get("total_steps") or (out["iterations"]
+                                               * self.steps_per_iter)
+            log.append(("trained", self.get_parameters(),
+                        time.perf_counter() - t1, out, taken))
+            return out
+    return Recorded
+
+
+def flat_params(params):
+    if isinstance(params, torch.Tensor):
+        return [params]
+    return [t for k in sorted(params) for t in flat_params(params[k])]
+
+
+def rl_curriculum_phase(dev, card, launches):
+    """Phase rl_curriculum: train_with_curriculum over dynamic_scene's
+    three phases at 800x600, fov 90, 5 bounces, CUR_STEPS steps a phase,
+    with PPO and with SAC (the JAX package's SAC has no parameter transfer;
+    the port's moves actor, critics and temperature): each phase's
+    parameters after set_parameters equal the last phase's final ones bit
+    for bit and training moves them; each phase's steps/s and mean episode
+    reward.  As in the JAX flow only phase 1 gets the given config."""
+    t0 = time.perf_counter()
+
+    def phase_env(phase):
+        scene, gl, pl = dynamic_scene(phase, device=dev)
+        return RayTracerEnv(scene, image_width=CUR_W, image_height=CUR_H,
+                            fov=CUR_FOV, max_bounces=CUR_BOUNCES,
+                            global_lights=gl, point_lights=pl)
+
+    report, failures = {}, []
+    reset_counts()
+    for algo, cls, cfg in (
+            ("ppo", PPOTrainer, PPOConfig()),
+            ("sac", SACTrainer, SACConfig(learning_starts=1000))):
+        log = []
+        _, res = train_with_curriculum(
+            phase_env, transfer_recorder(cls, log),
+            steps_per_phase=(CUR_STEPS,) * 3, seed=SEED,
+            trainer_kwargs={"config": cfg})
+        trained = [e for e in log if e[0] == "trained"]
+        sets = [e for e in log if e[0] == "set"]
+        transfer = all(
+            all(bool(torch.equal(a, b)) for a, b in
+                zip(flat_params(st[1]), flat_params(tn[1])))
+            for st, tn in zip(sets, trained))
+        moved = all(
+            any(not torch.equal(a, b) for a, b in
+                zip(flat_params(st[1]), flat_params(tn[1])))
+            for st, tn in zip(sets, trained[1:]))
+        phases = []
+        for _, _, secs, out, steps in trained:
+            phases.append({"seconds": secs, "steps": steps,
+                           "steps_per_s": steps / secs,
+                           "mean_episode_reward":
+                               out["mean_episode_reward"]})
+        report[algo] = {"phases": phases, "transfer_bit_equal": transfer,
+                        "training_moved_parameters": moved}
+        if not (transfer and moved and len(sets) == 2 and len(res) == 3):
+            failures.append(algo)
+    counts = launch_counts()
+    add_launches(launches, counts)
+    emit({"phase": "rl_curriculum", **card,
+          "env": f"dynamic_scene 1-3 {CUR_W}x{CUR_H} fov {CUR_FOV}, "
+                 f"{CUR_BOUNCES} bounces, rl",
+          "steps_per_phase": CUR_STEPS, **report, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    check(not failures, f"rl_curriculum: transfer failed for {failures}")
+    check(counts["whitted_trace"] > 0 and counts["nearest_hit"] > 0,
+          f"rl_curriculum: launches {counts}")
+
+
+INTERACTIVE_RUNS = {
+    "1 mode 1": ["1", "1", str(IT_STEPS), "m"],
+    "1 mode 2": ["1", "2", str(3 * IT_STEPS), "c"],
+    "1 mode 3": ["1", "3", str(IT_STEPS), "m"],
+    "2": ["2", str(SHIPPED_DIR / "ppo_raytracer.npz")],
+    "3": ["3"],
+    "4": ["4"],
+    "5": ["5", ""],
+    "6": ["6", str(IT_STEPS)],
+}
+
+
+def interactive_phase(dev, card, launches, work_dir):
+    """Phase interactive: the CLI's interactive menu on the card with
+    scripted answers (options 1 in its three modes, 2 on the shipped PPO,
+    3, 4, 5, 6) at tiny step counts, in ``work_dir``; then option 4's
+    integration example run as printed."""
+    t0 = time.perf_counter()
+    report = {}
+    reset_counts()
+    with in_dir(work_dir):
+        for name, answers in INTERACTIVE_RUNS.items():
+            it = iter(answers)
+
+            def input_fn(prompt, it=it):
+                try:
+                    return next(it)
+                except StopIteration:
+                    raise EOFError from None
+
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.cmd_interactive(types.SimpleNamespace(
+                    seed=SEED, device="cuda"), input_fn=input_fn)
+            torch.cuda.synchronize()
+            out = buf.getvalue()
+            report[name] = {"seconds": time.perf_counter() - t1,
+                            "lines": len(out.splitlines())}
+            if name.startswith("1") or name == "2":
+                report[name]["evaluation"] = json.loads(
+                    out.strip().splitlines()[-1])
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ns = {}
+            exec(compile(cli.INTEGRATION_EXAMPLE, "integration_example",
+                         "exec"), ns)
+        torch.cuda.synchronize()
+        report["4"]["example_seconds"] = time.perf_counter() - t1
+        files = sorted(p.name for p in work_dir.iterdir())
+    counts = launch_counts()
+    add_launches(launches, counts)
+    emit({"phase": "interactive", **card, "runs": report, "files": files,
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    for f in ("m.pkl", "c.pkl", "raytracer_final.pkl",
+              "raytracer_final_benchmark.json",
+              "rl_vs_traditional_comparison.png"):
+        check(f in files, f"interactive: no {f}")
+    check(all(r["evaluation"]["episodes"] == 20 for k, r in report.items()
+              if "evaluation" in r), "interactive: an evaluation")
+    check(ns["img"].shape == (600, 800, 3) and ns["stats"].total_rays > 0,
+          "interactive: the integration example's render")
+    check(counts["whitted_trace"] > 0 and counts["nearest_hit"] > 0
+          and sum(counts["path_trace"].values()) > 0,
+          f"interactive: launches {counts}")
+
+
+def quiet(fn, log_path):
+    """``fn()`` with its standard output and errors in ``log_path``; its
+    wall seconds (the card synchronized) and its result."""
+    t1 = time.perf_counter()
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f), \
+            contextlib.redirect_stderr(f):
+        out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t1, out
+
+
+def ship_tools_phase(dev, card, launches):
+    """Phase ship_tools: the recipes on the card, into build/ship/:
+    ship_models train-chandelier (ST_SCENES scenes of ST_STEPS walkers in
+    the three chunks, guide_prob 0 -> 0.25 -> 0.5; the nearest-hit kernel a
+    walk step), distill --sharpen of its teacher, eval of that student
+    (stepwise: the nearest-hit kernel a level), heldout-chandelier (the
+    one-step probes, and the render comparison through the path kernels),
+    and ship_rl ppo-sweep at --scale ST_SWEEP_SCALE (the Whitted and
+    nearest-hit kernels through the env); the wall time of each."""
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "ship"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    teacher = out / "fb_chandelier_trained.npz"
+    student = out / "fb_chandelier_distilled_card.npz"
+    here = os.getcwd()
+    os.chdir(ROOT)                   # the tools write under build/ship/
+    reset_counts()
+    try:
+        walls = {}
+        walls["train_chandelier"], _ = quiet(lambda: ship_models.main([
+            "train-chandelier", "--scenes", str(ST_SCENES), "--steps",
+            str(ST_STEPS), "--out", str(teacher)]), out / "train.log")
+        walls["distill_sharpen"], _ = quiet(lambda: ship_models.main([
+            "distill", "--scene", "chandelier", "--teacher", str(teacher),
+            "--out", str(student), "--sharpen", "--frames", str(ST_FRAMES),
+            "--epochs", str(ST_EPOCHS)]), out / "distill.log")
+        walls["eval"], stats = quiet(lambda: ship_models.main([
+            "eval", "--scene", "chandelier", "--model", str(student)]),
+            out / "eval.log")
+        walls["heldout_chandelier"], held = quiet(lambda: ship_models.main([
+            "heldout-chandelier", "--teacher", str(teacher), "--student",
+            str(student)]), out / "heldout.log")
+        walls["ppo_sweep"], sweep = quiet(lambda: ship_rl.main([
+            "ppo-sweep", "--scale", str(ST_SWEEP_SCALE)]),
+            out / "ppo_sweep.log")
+    finally:
+        os.chdir(here)
+    counts = launch_counts()
+    add_launches(launches, counts)
+    emit({"phase": "ship_tools", **card, "wall_seconds": walls,
+          "train_chandelier": f"{ST_SCENES} scenes x {ST_STEPS} steps",
+          "distill": f"--sharpen --frames {ST_FRAMES} --epochs {ST_EPOCHS}",
+          "eval_comparison": stats["comparison"],
+          "heldout": {k: held[k] for k in ("teacher_one_step",
+                                           "student_one_step",
+                                           "render_level")},
+          "ppo_sweep": {"scale": ST_SWEEP_SCALE, "best": sweep["best"],
+                        "random_hit_rate":
+                            sweep["random"]["light_hit_rate"],
+                        "candidates": {k: {
+                            "hit_z_vs_random": v["hit_z_vs_random"],
+                            "light_hit_rate": v["eval"]["light_hit_rate"],
+                            "timesteps": v["timesteps"]}
+                            for k, v in sweep["sweep"].items()}},
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    check(teacher.exists() and student.exists()
+          and (out / "ppo_best.npz").exists(), "ship_tools: outputs")
+    check(stats["traditional"]["total_rays"] > 0
+          and stats["fb"]["total_rays"] > 0, f"ship_tools: eval {stats}")
+    check(counts["nearest_hit"] > 0 and counts["whitted_trace"] > 0
+          and counts["path_trace"]["unguided"] > 0
+          and counts["path_trace"]["bf16_mma"] > 0,
+          f"ship_tools: launches {counts}")
+
+
+def figures_phase(dev, card, launches):
+    """Phase figures: whether matplotlib is present, and the three flows
+    that draw a figure as a side product (train-ppo --analyze,
+    run_custom_scene_experiment, render_comparison) run to their end on
+    the card, with the figure or the line saying it was not drawn."""
+    from raytracer_tpu_torch.utils.figures import have_matplotlib
+    t0 = time.perf_counter()
+    has_mpl = have_matplotlib()
+    reset_counts()
+    flows = {}
+    with in_dir(ROOT / "build" / "figures") as d:
+        for name, fn, png in (
+                ("train_ppo_analyze", lambda: cli.main([
+                    "train-ppo", "--timesteps", "1792", "--out", "p.npz",
+                    "--analyze"]), d / "ppo_analysis.png"),
+                ("custom_scene_experiment", lambda: CustomSceneExperiment(
+                    output_dir=str(d), mode=O5_MODE,
+                    device=dev).run_custom_scene_experiment(), None),
+                ("render_comparison", lambda: rl_renderer.RayTracerRL(
+                    str(SHIPPED_DIR / "sac_raytracer.npz"),
+                    device=dev).render_comparison(
+                        200, 150, str(d / "rl_vs_traditional.png")),
+                 d / "rl_vs_traditional.png")):
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                fn()
+            torch.cuda.synchronize()
+            if png is None:
+                png = next(d.glob("experiment_*")) / \
+                    "custom_scene_analysis.png"
+            noted = "not drawn: matplotlib is not installed" in \
+                buf.getvalue()
+            flows[name] = {"seconds": time.perf_counter() - t1,
+                           "figure_written": png.exists(),
+                           "not_drawn_line": noted}
+    counts = launch_counts()
+    add_launches(launches, counts)
+    emit({"phase": "figures", **card, "matplotlib": has_mpl,
+          "flows": flows, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    for name, f in flows.items():
+        check((f["figure_written"] and not f["not_drawn_line"]) if has_mpl
+              else f["not_drawn_line"], f"figures: {name} {f}")
+    check(flows["render_comparison"]["figure_written"],
+          "figures: render_comparison wrote no PNG")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3644,6 +4068,17 @@ def main():
         add_launches(fx_total, counts)
     emit({"phase": "frame_extras_total", "launches": fx_routes,
           "seconds": time.perf_counter() - t_fx})
+    # The rest of the RL track (the shaped env, the curriculum), the CLI's
+    # interactive menu, the recipes and the figures.
+    t_cr = time.perf_counter()
+    cr_total = {}
+    rl_shaped_phase(dev, card, cr_total)
+    rl_curriculum_phase(dev, card, cr_total)
+    interactive_phase(dev, card, cr_total, ROOT / "build" / "interactive")
+    ship_tools_phase(dev, card, cr_total)
+    figures_phase(dev, card, cr_total)
+    emit({"phase": "curriculum_recipes_total", "launches": cr_total,
+          "seconds": time.perf_counter() - t_cr})
     by_entry = {"path_trace": new_routes["path_trace"]["unguided"],
                 "path_trace_guided": new_routes["path_trace"]["bf16_mma"],
                 "path_level": new_routes["path_level"],
@@ -3662,9 +4097,15 @@ def main():
                 "path_level": fx_total["path_level"],
                 "whitted_trace": fx_total["whitted_trace"],
                 "nearest_hit": fx_total["nearest_hit"]}
+    cr_entry = {"path_trace": cr_total["path_trace"]["unguided"],
+                "path_trace_guided": cr_total["path_trace"]["bf16_mma"],
+                "path_level": cr_total["path_level"],
+                "whitted_trace": cr_total["whitted_trace"],
+                "nearest_hit": cr_total["nearest_hit"]}
     for k in kernels:
         k["launches_harness_distill_output5"] = by_entry[k["name"]]
         k["launches_frame_extras"] = fx_entry[k["name"]]
+        k["launches_curriculum_recipes"] = cr_entry[k["name"]]
         if k["name"] in ("whitted_trace", "nearest_hit"):
             k["launches_rl"] = rl_routes[k["name"]]
     emit({"kernels": kernels + [walk_kernel, distill_kernel,

@@ -1,5 +1,4 @@
-"""Agent behaviour analytics (its figures are not ported: the card's
-machine has no matplotlib).
+"""Agent behaviour analytics and their figures.
 
 Counterpart of ``raytracer_tpu/agents/analytics.py``:
 
@@ -9,10 +8,15 @@ Counterpart of ``raytracer_tpu/agents/analytics.py``:
                                       reasons)
 * ``canonical_pixel_policy_probe``  — the policy at 5 canonical pixels,
                                       :279-346
-* ``collect_3d_paths``              — RL/train_raytracer_optimized.py:
-                                      366-446 (the points; the plot is not
-                                      ported)
+* ``collect_3d_paths``, ``plot_3d_paths`` — RL/train_raytracer_optimized.py:
+                                      366-446
 * ``compare_algorithms`` PPO vs SAC — :449-546
+* ``advanced_analysis_png``         — the six-panel figure,
+                                      RL/train_raytracer_improved.py:430-507
+
+The figures are JAX's (panels, data, titles, sizes, dpi), drawn with
+matplotlib imported inside each function: without it they raise
+``ImportError`` (``utils/figures.py``).
 
 A policy maps ``[R, 18]`` observation tensors to ``[R, 2]`` actions.
 Random actions (``policy`` None) are uniform over the RL variant's box,
@@ -128,6 +132,27 @@ def collect_3d_paths(env: RayTracerEnv, policy: Optional[Callable], *,
     return [np.stack(p) for p in paths if len(p) > 1]
 
 
+def plot_3d_paths(paths, scene, out_path):
+    """The scene's spheres (radius < 50) and the bounce-point chains in
+    3-D, x/z/y axes."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig = plt.figure(figsize=(9, 9))
+    ax = fig.add_subplot(projection="3d")
+    c = scene.centre.cpu().numpy()
+    r = scene.radius.cpu().numpy()
+    keep = r < 50
+    ax.scatter(c[keep, 0], c[keep, 2], c[keep, 1],
+               s=np.clip(r[keep] * 150, 10, 300),
+               c=np.clip(scene.colour.cpu().numpy()[keep] / 255, 0, 1))
+    for p in paths:
+        ax.plot(p[:, 0], p[:, 2], p[:, 1], alpha=0.6, lw=1)
+    ax.set_xlabel("x"); ax.set_ylabel("z"); ax.set_zlabel("y")
+    plt.savefig(out_path, dpi=100, bbox_inches="tight")
+    plt.close(fig)
+
+
 def compare_algorithms(make_env, *, timesteps: int = 10_000, seed: int = 0,
                        out_dir: Optional[str] = None) -> dict:
     """PPO against SAC on ``make_env()`` (RL/train_raytracer_optimized.py:
@@ -157,3 +182,34 @@ def compare_algorithms(make_env, *, timesteps: int = 10_000, seed: int = 0,
         with open(Path(out_dir) / "algorithm_comparison.json", "w") as f:
             json.dump(results, f, indent=2, default=float)
     return results
+
+
+def advanced_analysis_png(behavior: dict, reward_history, out_path):
+    """The six-panel analysis figure (RL/train_raytracer_improved.py:
+    430-507): rewards, their moving average and histogram, and the
+    behaviour's hit frequency, success by bounce and termination reasons
+    as bars."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, axes = plt.subplots(2, 3, figsize=(16, 9))
+    ax = axes.ravel()
+    rh = np.asarray(reward_history, float)
+    ax[0].plot(rh); ax[0].set_title("episode rewards")
+    if len(rh) > 10:
+        w = max(1, len(rh) // 20)
+        ax[1].plot(np.convolve(rh, np.ones(w) / w, "valid"))
+    ax[1].set_title("moving average")
+    ax[2].hist(rh, bins=30); ax[2].set_title("reward distribution")
+    hf = behavior["hit_frequency_by_id"]
+    ax[3].bar([str(k) for k in hf], list(hf.values()))
+    ax[3].set_title("hit frequency by object id")
+    sb = behavior["success_rate_by_bounce"]
+    ax[4].bar([str(k) for k in sb], list(sb.values()))
+    ax[4].set_title("success rate by bounce")
+    tr = behavior["termination_reasons"]
+    ax[5].bar([str(k) for k in tr], list(tr.values()))
+    ax[5].set_title("termination reasons")
+    plt.tight_layout()
+    plt.savefig(out_path, dpi=100, bbox_inches="tight")
+    plt.close(fig)

@@ -345,6 +345,19 @@ class PPOTrainer:
             self._build(hidden)
         load_state(self.net, state)
 
+    # -- parameter transfer between curriculum phases ----------------------
+    def get_parameters(self) -> dict:
+        """The network's parameters as detached copies (a later phase
+        cannot alias them); RL/train_raytracer_improved.py:258-274."""
+        return {k: v.detach().clone() for k, v in self.net.state_dict().items()}
+
+    @torch.no_grad()
+    def set_parameters(self, params: dict) -> None:
+        """Copy ``params`` into the existing network in place: the Adam
+        state keeps its references to the parameter tensors."""
+        for k, v in self.net.state_dict().items():
+            v.copy_(params[k])
+
     def load_sb3(self, path):
         """A stable-baselines3 PPO ``.zip``: policy and value weights and
         ``log_std``, and the archive's action bounds when it has them."""

@@ -381,6 +381,26 @@ class SACTrainer:
         if target is not None:
             load_state(self.target_critic, target)
 
+    # -- parameter transfer between curriculum phases ----------------------
+    def get_parameters(self) -> dict:
+        """Detached copies of the actor, the critic, the target critic and
+        ``log_alpha`` (the JAX package's SAC has no such pair; SB3's, which
+        the reference's curriculum used, moves all four)."""
+        def copy(m):
+            return {k: v.detach().clone() for k, v in m.state_dict().items()}
+        return {"actor": copy(self.actor), "critic": copy(self.critic),
+                "target_critic": copy(self.target_critic),
+                "log_alpha": self.log_alpha.detach().clone()}
+
+    @torch.no_grad()
+    def set_parameters(self, params: dict) -> None:
+        """Copy ``params`` into the existing modules in place: the three
+        Adams keep their references to the parameter tensors."""
+        for name in ("actor", "critic", "target_critic"):
+            for k, v in getattr(self, name).state_dict().items():
+                v.copy_(params[name][k])
+        self.log_alpha.copy_(params["log_alpha"])
+
     def load_sb3(self, path):
         """A stable-baselines3 SAC ``.zip``: actor, both critics and the
         target critics, and the archive's action bounds when it has

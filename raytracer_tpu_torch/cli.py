@@ -10,6 +10,7 @@ runs the plain PyTorch versions).
     raytracer-tpu-torch train-sac --timesteps 50000
     raytracer-tpu-torch train-q --episodes 1000
     raytracer-tpu-torch demo
+    raytracer-tpu-torch interactive  (the reference's menus)
     raytracer-tpu-torch rl-pipeline --algo ppo|sac  (train, evaluate, bench)
     raytracer-tpu-torch train-fb [--quick] [--scenes N]
     raytracer-tpu-torch train-fb-chandelier [--quick] [--scenes N]
@@ -21,13 +22,13 @@ runs the plain PyTorch versions).
 (also ``python -m raytracer_tpu_torch.cli ...``).  ``compare-*
 --spp-chunk N`` renders both sides in chunks of N samples through
 impl ``"kernel"``.  ``train-* --analyze`` prints the behaviour statistics
-and writes their CSV; the JAX CLI's figure beside them is not ported (the
-card's machine has no matplotlib), and ``rl-pipeline --cpu`` is
-``--device cpu``.  ``animate`` renders its frames one by one
+and writes their CSV and, where matplotlib is installed, the six-panel
+figure (otherwise it says the figure was not drawn); ``rl-pipeline
+--cpu`` is ``--device cpu``.  ``animate`` renders its frames one by one
 (``render/animation.py``), where JAX maps one program over them; its path
 frames draw from a ``torch.Generator`` seeded with ``--seed``, so their
-noise is not JAX's.  The JAX CLI's ``interactive`` is not ported yet
-(ROADMAP.md).
+noise is not JAX's.  ``interactive`` is the reference's ``input()`` menus
+with JAX's prompts; its option 4 prints the port's integration example.
 """
 from __future__ import annotations
 
@@ -218,17 +219,23 @@ def cmd_train_sac(args):
 
 
 def _post_training_analysis(env, trainer, prefix):
-    """Behaviour statistics and their CSV (RL/train_raytracer_improved.py:
-    349-507); the six-panel figure is not ported."""
-    from .agents.analytics import analyze_agent_behavior
+    """Behaviour statistics, the six-panel figure and the CSV
+    (RL/train_raytracer_improved.py:349-507).  Without matplotlib the
+    figure is skipped with a line saying so."""
+    from .agents.analytics import (advanced_analysis_png,
+                                   analyze_agent_behavior)
+    from .utils.figures import figure_or_note
     from .utils.metrics import write_csv
     behavior = analyze_agent_behavior(env, trainer.predict, episodes=200)
     print(json.dumps(behavior, indent=2, default=str))
+    drawn = figure_or_note(advanced_analysis_png, behavior,
+                           trainer.episode_rewards, f"{prefix}.png",
+                           name=f"{prefix}.png")
     write_csv(f"{prefix}.csv",
               [{"metric": k, "value": json.dumps(v, default=str)}
                for k, v in behavior.items()])
-    print(f"analysis -> {prefix}.csv ({prefix}.png, the figure, is not "
-          f"ported: no matplotlib on the card's machine)")
+    print(f"analysis -> {prefix}.png / {prefix}.csv" if drawn
+          else f"analysis -> {prefix}.csv")
 
 
 def cmd_train_q(args):
@@ -268,6 +275,154 @@ def cmd_demo(args):
     print(f"total reward: {float(state.total_reward[0]):+.3f}")
 
 
+INTEGRATION_EXAMPLE = '''\
+# Integration: trained policy as a sampling guide inside a renderer
+# (the PyTorch/CUDA form of RL/ray_tracer_rl_complete.py:268-426's
+# template; everything runs on the card, device "cuda").
+import torch
+from raytracer_tpu_torch.agents import SHIPPED_DIR
+from raytracer_tpu_torch.compare.workbench import load_policy
+from raytracer_tpu_torch.compare.rl_renderer import RayTracerRL
+from raytracer_tpu_torch.env.raytracer_env import RayTracerEnv
+from raytracer_tpu_torch.env.scenes import training_scene_complete
+
+scene, gl, pl = training_scene_complete()
+env = RayTracerEnv(scene, image_width=400, image_height=300, fov=75,
+                   max_bounces=8, global_lights=gl, point_lights=pl)
+policy = load_policy(SHIPPED_DIR / "ppo_raytracer.npz", env)  # .npz, .pkl
+                                       # or an SB3 .zip (utils/sb3_import.py)
+renderer = RayTracerRL(model_path=str(SHIPPED_DIR / "sac_raytracer.npz"))
+renderer.render_comparison(width=200, height=150)
+
+# FB guides plug into the path tracer the same way:
+from raytracer_tpu_torch.fb.registry import STUDENTS_DIR, guide_for
+from raytracer_tpu_torch.render.path_renderer import render_path
+from raytracer_tpu_torch.scene.library import chandelier_scene
+
+scene, _, _, p = chandelier_scene()
+guide = guide_for("chandelier", 800, 600, STUDENTS_DIR)
+img, stats = render_path(scene, width=800, height=600, spp=8, max_bounces=8,
+                         camera_position=p["camera_position"],
+                         guide_fn=guide, fb_prob=1.0,
+                         generator=torch.Generator("cuda").manual_seed(0))
+# Full walk-through: docs/INTEGRATION.md and README.md's port section.
+'''
+
+
+def cmd_interactive(args, input_fn=input):
+    """The reference's ``input()`` menu flows as one subcommand
+    (RL/ray_tracer_rl_complete.py:498-545 options menu;
+    RL/train_raytracer_improved.py:349-412 training-mode menu), with the
+    JAX CLI's prompts.  Invalid or EOF input falls back to option 1, as in
+    the reference.  Mode 2 runs the curriculum with SAC, whose parameters
+    the port carries across phases (the JAX package's SAC cannot)."""
+    from .agents.sac import SACConfig, SACTrainer
+    from .compare.workbench import (check_model_exists, compare_rl_vs_random,
+                                    evaluate_policy, load_policy)
+    from .core.device import resolve_device
+
+    dev = resolve_device(args.device)
+
+    def ask(prompt, default):
+        try:
+            return input_fn(prompt) or default
+        except Exception:
+            return default
+
+    print("=" * 80)
+    print("RAY TRACING REINFORCEMENT LEARNING - COMPLETE SOLUTION")
+    print("=" * 80)
+    print("\nOptions:")
+    print("1. Train a new model")
+    print("2. Evaluate existing model")
+    print("3. Demonstrate model behavior")
+    print("4. Show integration example")
+    print("5. Run performance benchmark (RL vs random)")
+    print("6. Full pipeline (train -> evaluate -> benchmark)")
+    try:
+        choice = int(ask("\nSelect option (1-6): ", "1"))
+    except Exception:
+        choice = 1
+
+    if choice == 1:
+        # The improved-training sub-menu (train_raytracer_improved.py:355-364)
+        print("\nTraining Modes:")
+        print("1. Standard training (faster)")
+        print("2. Curriculum learning (better results, slower)")
+        print("3. Continue from saved model")
+        try:
+            mode = int(ask("\nSelect mode (1-3): ", "1"))
+        except Exception:
+            mode = 1
+        timesteps = int(ask("Training timesteps (e.g., 20000): ", "20000"))
+        name = ask("Model name (e.g., raytracer_sac): ", "raytracer_sac")
+        if mode == 2:
+            from .agents.adaptive import train_with_curriculum
+            from .env.raytracer_env import RayTracerEnv
+            from .env.scenes import dynamic_scene
+
+            def phase_env(phase):
+                scene, gl, pl = dynamic_scene(phase, device=dev)
+                return RayTracerEnv(scene, image_width=800, image_height=600,
+                                    fov=90, max_bounces=5, global_lights=gl,
+                                    point_lights=pl)
+
+            t3 = max(1, timesteps // 3)
+            tr, _ = train_with_curriculum(phase_env, SACTrainer,
+                                          steps_per_phase=(t3, t3, t3),
+                                          seed=args.seed)
+            env = tr.env
+        else:
+            env = _make_rl_env(dev)
+            tr = SACTrainer(env, SACConfig(), seed=args.seed)
+            if mode == 3:
+                path = check_model_exists(name)
+                if path is not None:
+                    tr.load(str(path))
+                    print(f"Loaded existing model: {path}")
+                else:
+                    print("No saved model found, starting fresh")
+            print(json.dumps(tr.train(timesteps)))
+        tr.save(f"{name}.pkl")
+        print(json.dumps(evaluate_policy(env, tr.predict, episodes=20)))
+    elif choice == 2:
+        name = ask("Model name (without .zip): ", "raytracer_sac_model")
+        env = _make_rl_env(dev)
+        path = check_model_exists(name)
+        if path is None:
+            print(f"Model '{name}' not found")
+            return
+        policy = load_policy(str(path), env)
+        print(json.dumps(evaluate_policy(env, policy.predict, episodes=20)))
+    elif choice == 3:
+        cmd_demo(args)
+    elif choice == 4:
+        print("\n" + "=" * 80)
+        print("INTEGRATION EXAMPLE")
+        print("=" * 80)
+        print(INTEGRATION_EXAMPLE)
+    elif choice == 5:
+        env = _make_rl_env(dev)
+        name = ask("Model name (blank = random policy): ", "")
+        path = check_model_exists(name) if name else None
+        if path is not None:
+            policy = load_policy(str(path), env).predict
+        else:
+            # reference-style graceful fallback: uniform-random policy
+            import numpy as np
+            rng = np.random.default_rng(args.seed)
+            policy = lambda obs: rng.uniform(  # noqa: E731
+                [0.0, 0.0], [np.pi / 2, 2 * np.pi],
+                size=(obs.shape[0], 2)).astype(np.float32)
+        print(json.dumps(compare_rl_vs_random(env, policy, episodes=50),
+                         indent=2))
+    else:
+        args.timesteps = int(ask("Training timesteps (e.g., 20000): ",
+                                 "20000"))
+        args.out = "raytracer_final.pkl"
+        cmd_rl_pipeline(args)
+
+
 def cmd_rl_pipeline(args):
     """RL/ray_tracer_rl_complete.py's pipeline: train, evaluate, benchmark
     against random actions.  ``--algo ppo`` trains with
@@ -279,14 +434,16 @@ def cmd_rl_pipeline(args):
     from .env.raytracer_env import RayTracerEnv
     from .env.scenes import training_scene_complete
 
-    dev = resolve_device("cpu" if args.cpu else args.device)
+    dev = resolve_device("cpu" if getattr(args, "cpu", False)
+                         else args.device)
     scene, gl, pl = training_scene_complete(device=dev)
     env = RayTracerEnv(scene, image_width=400, image_height=300, fov=75,
                        max_bounces=8, global_lights=gl, point_lights=pl,
                        variant="rl")
-    if args.algo == "ppo":
+    tb_log = getattr(args, "tensorboard_log", None)
+    if getattr(args, "algo", "sac") == "ppo":
         from .agents.ppo import PPOConfig, PPOTrainer
-        tr = PPOTrainer(env, PPOConfig(tensorboard_log=args.tensorboard_log),
+        tr = PPOTrainer(env, PPOConfig(tensorboard_log=tb_log),
                         seed=args.seed)
         print(f"training (PPO on {dev})...")
         print(json.dumps(tr.train_on_device(args.timesteps)))
@@ -294,7 +451,7 @@ def cmd_rl_pipeline(args):
         from .agents.sac import SACConfig, SACTrainer
         tr = SACTrainer(env, SACConfig(
             learning_starts=min(1000, args.timesteps // 4),
-            tensorboard_log=args.tensorboard_log), seed=args.seed)
+            tensorboard_log=tb_log), seed=args.seed)
         print("training...")
         print(json.dumps(tr.train(args.timesteps)))
     tr.save(args.out)
@@ -455,6 +612,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     dm = command("demo", cmd_demo)
     dm.add_argument("--seed", type=int, default=0)
+
+    it = command("interactive", cmd_interactive)
+    it.add_argument("--seed", type=int, default=0)
 
     rp = command("rl-pipeline", cmd_rl_pipeline)
     rp.add_argument("--algo", default="sac", choices=["sac", "ppo"],

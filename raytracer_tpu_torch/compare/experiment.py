@@ -11,7 +11,10 @@ rendered with the same 601x601 grid camera (the "unified camera",
   ``trace/output5_style.py`` (the nearest-hit kernel a level on the card).
 
 Outputs, into a timestamped directory: ``unified_comparison.png`` (the four
-frames in a 2x2 grid), the per-method performance trials and
+frames in a 2x2 grid), the per-method performance trials,
+``custom_scene_analysis.png`` (JAX's matplotlib figure: the scene's
+layout in 3-D, three of the renders, the trials' bars; :1688-1861; skipped
+with a printed line where matplotlib is absent, ``utils/figures.py``) and
 ``custom_scene_results.json`` with a UTF-8 text summary (:1863-1945).
 
 Seeds: JAX seeds a method's render with ``seed + hash(method) % 1000``,
@@ -188,9 +191,52 @@ class CustomSceneExperiment:
                 f.write("\n\n")
         return out
 
+    def create_custom_scene_visualization(self, images=None):
+        """Analysis figure (RL/output5.py:1688-1861): 3-D scene layout,
+        up to three method renders, per-method trial metrics."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        scene, _, _, _ = library.custom_scene(device="cpu")
+        fig = plt.figure(figsize=(16, 10))
+        ax = fig.add_subplot(2, 3, 1, projection="3d")
+        c = scene.centre.numpy()
+        r = scene.radius.numpy()
+        col = np.clip(scene.colour.numpy() / 255.0, 0, 1)
+        emis = scene.emitive.numpy() > 0
+        keep = r < 20
+        ax.scatter(c[keep, 0], c[keep, 2], c[keep, 1],
+                   s=np.clip(r[keep] * 400, 20, 600), c=col[keep],
+                   edgecolors=np.where(emis[keep], "gold", "none"))
+        ax.set_title("scene layout")
+        slot = 2
+        for name, img in (images or {}).items():
+            if slot > 4:
+                break
+            a2 = fig.add_subplot(2, 3, slot)
+            a2.imshow(np.clip(img, 0, 1)); a2.set_title(name); a2.axis("off")
+            slot += 1
+        trials = self.results.get("trials", {})
+        if trials:
+            a5 = fig.add_subplot(2, 3, 5)
+            names = list(trials)
+            a5.bar(names, [trials[n]["avg_reward"] for n in names])
+            a5.set_title("avg reward / ray")
+            a6 = fig.add_subplot(2, 3, 6)
+            a6.bar(names, [trials[n]["avg_light_hits"] for n in names])
+            a6.set_title("avg light hits / ray")
+        plt.tight_layout()
+        out = self.output_dir / "custom_scene_analysis.png"
+        plt.savefig(out, dpi=100, bbox_inches="tight")
+        plt.close(fig)
+        return out
+
     def run_custom_scene_experiment(self):
         """End-to-end flow (:1527-1622): the grid, the trials, the
-        results."""
-        self.render_unified_comparison()
+        analysis figure, the results."""
+        from ..utils.figures import figure_or_note
+        images, _, _ = self.render_unified_comparison()
         self.run_performance_trials()
+        figure_or_note(self.create_custom_scene_visualization, images,
+                       name=str(self.output_dir / "custom_scene_analysis.png"))
         return self.save_custom_results()

@@ -190,12 +190,31 @@ class RayTracerRL:
 
     def render_comparison(self, width=400, height=300,
                           out_path="rl_vs_traditional_comparison.png"):
-        """The guided and the uniform image side by side in one PNG (the
-        JAX package draws them with matplotlib, titled; the port writes the
-        pixels only)."""
-        from ..utils.io import save_image
+        """The guided and the uniform image as JAX's titled two-panel
+        matplotlib figure; without matplotlib the two images side by side
+        in one PNG, and a printed line saying the figure was not drawn."""
+        from ..utils.figures import figure_or_note
         rl_img = self.render_single_view(width, height, use_rl=True)
         trad_img = self.render_single_view(width, height, use_rl=False)
-        save_image(out_path, np.concatenate([rl_img, trad_img],
-                                            axis=1).astype(np.uint8))
+        if not figure_or_note(self.comparison_figure, rl_img, trad_img,
+                              out_path, name=str(out_path)):
+            from ..utils.io import save_image
+            save_image(out_path, np.concatenate([rl_img, trad_img],
+                                                axis=1).astype(np.uint8))
         return rl_img, trad_img
+
+    def comparison_figure(self, rl_img, trad_img, out_path):
+        """The two renders, titled, 12x5 in at 120 dpi."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, (a1, a2) = plt.subplots(1, 2, figsize=(12, 5))
+        a1.imshow(rl_img.astype(np.uint8))
+        a1.set_title("RL-guided" if self.use_rl else "RL (fallback)")
+        a1.axis("off")
+        a2.imshow(trad_img.astype(np.uint8))
+        a2.set_title("Traditional")
+        a2.axis("off")
+        plt.tight_layout()
+        plt.savefig(out_path, dpi=120, bbox_inches="tight")
+        plt.close(fig)

@@ -3,8 +3,9 @@ across path conventions (:53-74), batched N-episode evaluation (:77-237),
 RL against random actions with the rays-per-light-hit efficiency
 (:604-807) and the orthographic debug renderer (:879-962).
 
-Counterpart of ``raytracer_tpu/compare/workbench.py`` (its matplotlib
-figures, ``plot_scene_3d`` and ``performance_plots``, are not ported).
+Counterpart of ``raytracer_tpu/compare/workbench.py``, with its
+matplotlib figures ``plot_scene_3d`` (:809-877) and ``performance_plots``
+(:513-602), matplotlib imported inside each (``utils/figures.py``).
 A policy maps ``[R, 18]`` observation tensors on the env's device to
 ``[R, 2]`` actions (a tensor or an array).  Randomness comes in as inputs:
 ``evaluate_policy`` takes its reset pixels and, for the random policy, its
@@ -161,3 +162,51 @@ def orthographic_render(scene: Scene, *, width: int = 200, height: int = 150,
     bg = torch.tensor(background, dtype=torch.float32, device=dev)
     col = torch.where(found[:, None], scene.colour[idx], bg[None])
     return col.cpu().numpy().reshape(height, width, 3).astype(np.uint8)
+
+
+def plot_scene_3d(scene: Scene, out_path: str) -> None:
+    """3-D scene scatter (:809-877): spheres under radius 50 by colour,
+    lights edged gold."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig = plt.figure(figsize=(8, 8))
+    ax = fig.add_subplot(projection="3d")
+    c = scene.centre.cpu().numpy()
+    r = scene.radius.cpu().numpy()
+    col = np.clip(scene.colour.cpu().numpy() / 255.0, 0, 1)
+    emis = scene.emitive.cpu().numpy() > 0
+    keep = r < 50     # skip the giant walls for readability
+    ax.scatter(c[keep, 0], c[keep, 2], c[keep, 1],
+               s=np.clip(r[keep] * 200, 10, 400), c=col[keep],
+               edgecolors=np.where(emis[keep], "gold", "none"))
+    ax.set_xlabel("x"); ax.set_ylabel("z"); ax.set_zlabel("y")
+    plt.savefig(out_path, dpi=100, bbox_inches="tight")
+    plt.close(fig)
+
+
+def performance_plots(history: dict, out_path: str) -> None:
+    """Six-panel performance dashboard (:513-602): the first six non-empty
+    series of ``history``, a ``*_hist`` one as a histogram, others as a
+    line with its moving average past 20 points."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    panels = [(k, v) for k, v in history.items() if len(v)][:6]
+    fig, axes = plt.subplots(2, 3, figsize=(15, 8))
+    for ax, (name, series) in zip(axes.ravel(), panels):
+        series = np.asarray(series, dtype=float)
+        if name.endswith("_hist"):
+            ax.hist(series, bins=30)
+        else:
+            ax.plot(series)
+            if len(series) > 20:
+                w = max(1, len(series) // 20)
+                ma = np.convolve(series, np.ones(w) / w, mode="valid")
+                ax.plot(np.arange(len(ma)) + w - 1, ma, lw=2)
+        ax.set_title(name)
+    for ax in axes.ravel()[len(panels):]:
+        ax.axis("off")
+    plt.tight_layout()
+    plt.savefig(out_path, dpi=100, bbox_inches="tight")
+    plt.close(fig)

@@ -98,11 +98,26 @@ def test_commands_parse_as_jax(monkeypatch, argv):
     assert got == want
 
 
-def test_device_option_and_unported_commands():
+def test_device_option_and_unported_commands(monkeypatch):
+    """``--device`` on a command; ``interactive`` (ported since) parses as
+    the JAX CLI's, plus ``--device``; an unknown command is refused."""
     args = cli.build_parser().parse_args(["experiment", "--device", "cpu"])
     assert args.device == "cpu"
+    for argv in (["interactive"], ["interactive", "--seed", "4"]):
+        got = vars(cli.build_parser().parse_args(argv))
+        assert got.pop("fn") is cli.cmd_interactive
+        assert got.pop("device") == "cuda"
+        seen = {}
+        monkeypatch.setattr(jax_cli, "cmd_interactive",
+                            lambda a: seen.setdefault("args", a))
+        monkeypatch.setattr(jax_cli, "_enable_compilation_cache",
+                            lambda: None)
+        jax_cli.main(argv)
+        want = vars(seen["args"])
+        want.pop("fn")
+        assert got == want
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["interactive"])
+        cli.build_parser().parse_args(["no-such-command"])
 
 
 @pytest.mark.parametrize("command", sorted(RL_COMMANDS))
@@ -122,7 +137,11 @@ def test_rl_commands_run_on_cpu(tmp_path, monkeypatch, capsys, command):
         assert (tmp_path / argv[argv.index("--out") + 1]).exists()
     if "--analyze" in argv:
         assert (tmp_path / "ppo_analysis.csv").exists()
-        assert "not ported" in out
+        from raytracer_tpu_torch.utils.figures import have_matplotlib
+        if have_matplotlib():
+            assert (tmp_path / "ppo_analysis.png").exists()
+        else:
+            assert "ppo_analysis.png not drawn" in out
     if command == "demo":
         assert "total reward" in out
     if not torch.cuda.is_available():

@@ -78,6 +78,15 @@ just after:
   (interactive); ship_models train-chandelier, distill --sharpen and eval,
   and ship_rl ppo-sweep, cut to size (ship_tools); and the flows that draw
   matplotlib figures, with or without matplotlib (figures).
+* the training recipes: ship_models train-multi at the reference protocol
+  (100 scenes x 150 walkers) and eval-multi of its teacher (100 held-out
+  scenes x 256 episodes), uncut; train-complex, distill-ensemble and
+  distill-episodes with their students' renders (the path kernels) and
+  episode evaluations, and ship_rl ppo-ship and sac-ship (the Whitted and
+  nearest-hit kernels through the env), cut to size (train_recipes); and
+  each teacher trained in the run as a full guide on the chandelier at
+  200x100@8spp/8, stepwise, against the traditional frame
+  (teacher_renders).
 
 It holds every kernel against its plain PyTorch version, checks frames
 against the executed-reference goldens, holds the path and level kernels
@@ -335,6 +344,38 @@ CUR_W, CUR_H, CUR_FOV, CUR_BOUNCES, CUR_STEPS = 800, 600, 90, 5, 5200
 IT_STEPS = 256
 ST_SCENES, ST_STEPS, ST_FRAMES, ST_EPOCHS = 8, 50, 2, 10
 ST_SWEEP_SCALE = 0.02
+# The training recipes (train_recipes).  train-multi at the reference
+# protocol, uncut (100 scenes cycling the 8 templates, 150 walkers a
+# scene, FBConfig()), then eval-multi of its teacher at its defaults,
+# uncut (100 held-out scenes x 256 episodes, seed 0), beside JAX's recorded
+# result (models/fb_multi_scene_held_out.json, its round-3 generalist:
+# policy 0.017578125, random 0.0103125; models/ is not on the card's
+# copy).  Cut: train-complex from 160 scenes x 200 walkers to TR_COMPLEX;
+# distill-ensemble from 6 frames and 40 epochs to TR_DISTILL; the
+# students' eval-multi from 100 scenes to TR_STUDENT_SCENES;
+# distill-episodes from 24 scenes x 8,192 walkers and 40 epochs to
+# TR_EPISODES; ppo-ship's stages (0.4M/0.6M/1M steps) by TR_PPO_SCALE, its
+# evaluation from 2,048 episodes to TR_RL_EVAL and its CPU probe from
+# 100,000 steps to TR_RL_CPU_PROBE; sac-ship from 400,000 nominal steps to
+# TR_SAC_STEPS, the same evaluation and probe cuts.
+TR_MULTI = (100, 150)
+TR_EVAL = (100, 256)
+JAX_MULTI_HELD_OUT = {"policy_hit_rate": 0.017578125,
+                      "random_hit_rate": 0.0103125,
+                      "ratio": 1.7045454545454544}
+TR_COMPLEX = (24, 100)
+TR_DISTILL = (2, 10)
+TR_STUDENT_SCENES = 16
+TR_EPISODES = (4, 2048, 10)
+TR_PPO_SCALE = 0.02
+TR_SAC_STEPS = 20_000
+TR_RL_EVAL, TR_RL_CPU_PROBE = 512, 4096
+# teacher_renders: the route on which a trained teacher's light hits are
+# read (PERF.md §6): ship_models eval at 200x100@8spp/8, seed 5, stepwise
+# on both sides; the traditional frame's small-light hits on it, as every
+# recorded render of this route on the H100 gave them.
+TEACHER_FRAME, TEACHER_SEED = (200, 100, 8), 5
+TEACHER_TRADITIONAL_HITS = 895
 
 # level_edges: seeded scenes on the edges of the level's exact rewrites
 # (raytracer_tpu_torch/tools/level_edges.py), rays a scene.
@@ -3518,6 +3559,8 @@ def rl_shaped_phase(dev, card, launches):
     nh_err, nh_equal = sweep_vs_plain(nh_calls)
     nh_queued = queued_ms(lambda: [cuda_intersect.nearest_hit(*a, **kw)
                                    for a, kw, _ in nh_calls])
+    nh_plain = cuda_ms(lambda: [cuda_intersect.nearest_hit_plain(*a, **kw)
+                                for a, kw, _ in nh_calls], 3)
     reachable = [k for k in SHAPING_TERMS if k != "miss_rewrite"]
     emit({"phase": "rl_shaped", **card,
           "env": f"training_scene_complete {RL_W}x{RL_H} fov {RL_FOV}, "
@@ -3528,6 +3571,7 @@ def rl_shaped_phase(dev, card, launches):
           "shaped_step_ms": shaped_ms, "base_step_ms": base_ms,
           "step_nearest_hit_launches": len(nh_calls),
           "step_nearest_hit_queued_ms": nh_queued,
+          "step_nearest_hit_plain_ms": nh_plain,
           "step_sweeps_found_idx_equal": nh_equal,
           "launches": counts, "seconds": time.perf_counter() - t0})
     check(equal_all, "rl_shaped: the kernel route differs from the plain "
@@ -3819,6 +3863,209 @@ def figures_phase(dev, card, launches):
           "figures: render_comparison wrote no PNG")
 
 
+def train_recipes_phase(dev, card, launches):
+    """Phase train_recipes: the training recipes the card had not run, into
+    build/ship/ (after ship_tools, whose chandelier teacher it reads):
+    ship_models train-multi at the reference protocol and eval-multi of
+    its teacher (uncut; the ratio beside JAX's recorded 1.70x), then, cut
+    to size (TR_*), train-complex, distill-ensemble of the card's
+    chandelier and multi-scene teachers on the chandelier with the
+    student's heldout-chandelier (its render through the path kernels)
+    and eval-multi, distill-episodes --type cornell_box from the
+    multi-scene teacher with the student's eval (the path kernels) and
+    eval-multi, and ship_rl ppo-ship and sac-ship (the Whitted and
+    nearest-hit kernels through the env).  Each recipe's wall seconds and
+    launches by kernel; each must write its outputs and launch every
+    kernel on its route."""
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "ship"
+    out.mkdir(parents=True, exist_ok=True)
+    chand = out / "fb_chandelier_trained.npz"
+    multi = out / "fb_multi_scene_trained.npz"
+    held = out / "fb_multi_scene_held_out.json"
+    complex_t = out / "fb_complex_trained.npz"
+    ens = out / "fb_chandelier_ensemble_card.npz"
+    epi = out / "fb_cornell_episodes_card.npz"
+    recipes = {}
+    here = os.getcwd()
+    os.chdir(ROOT)                   # the tools write under build/ship/
+
+    def run(name, fn, need):
+        reset_counts()
+        wall, res = quiet(fn, out / f"{name}.log")
+        c = launch_counts()
+        add_launches(launches, c)
+        recipes[name] = {"wall_seconds": wall, "launches": c}
+        flat = {"unguided": c["path_trace"]["unguided"],
+                "bf16_mma": c["path_trace"]["bf16_mma"], **{
+                    k: v for k, v in c.items() if k != "path_trace"}}
+        check(all(flat[k] > 0 for k in need),
+              f"train_recipes: {name} launched {c}, needs {need}")
+        return res
+
+    def models(*argv):
+        return lambda: ship_models.main(list(map(str, argv)))
+
+    try:
+        run("train_multi", models(
+            "train-multi", "--scenes", TR_MULTI[0], "--steps", TR_MULTI[1],
+            "--out", multi, "--workdir", out / "multi_work"),
+            ["nearest_hit"])
+        run("eval_multi", models(
+            "eval-multi", "--model", multi, "--scenes", TR_EVAL[0],
+            "--episodes", TR_EVAL[1], "--seed", 0, "--out", held),
+            ["nearest_hit"])
+        run("train_complex", models(
+            "train-complex", "--scenes", TR_COMPLEX[0], "--steps",
+            TR_COMPLEX[1], "--out", complex_t, "--workdir",
+            out / "complex_work"), ["nearest_hit"])
+        run("distill_ensemble", models(
+            "distill-ensemble", "--scene", "chandelier", "--teachers", chand,
+            multi, "--out", ens, "--frames", TR_DISTILL[0], "--epochs",
+            TR_DISTILL[1]), ["nearest_hit"])
+        ens_held = run("heldout_ensemble", models(
+            "heldout-chandelier", "--teacher", chand, "--student", ens,
+            "--out", out / "heldout_ensemble.json"),
+            ["nearest_hit", "unguided", "bf16_mma"])
+        run("eval_multi_ensemble", models(
+            "eval-multi", "--model", ens, "--type", "chandelier_scene",
+            "--scenes", TR_STUDENT_SCENES, "--out",
+            out / "held_out_ensemble_multi.json"), ["nearest_hit"])
+        run("distill_episodes", models(
+            "distill-episodes", "--type", "cornell_box", "--teacher", multi,
+            "--out", epi, "--scenes", TR_EPISODES[0], "--walkers",
+            TR_EPISODES[1], "--epochs", TR_EPISODES[2]), ["nearest_hit"])
+        epi_stats = run("eval_episodes_student", models(
+            "eval", "--scene", "cornell_box", "--model", epi, "--out",
+            out / "eval_cornell"), ["unguided", "bf16_mma"])
+        run("eval_multi_episodes_student", models(
+            "eval-multi", "--model", epi, "--type", "cornell_box",
+            "--scenes", TR_STUDENT_SCENES, "--out",
+            out / "held_out_cornell_multi.json"), ["nearest_hit"])
+        ppo = run("ppo_ship", lambda: ship_rl.cmd_ppo_ship(
+            ship_rl.build_parser().parse_args(["ppo-ship"]),
+            stages=[(e, int(n * TR_PPO_SCALE))
+                    for e, n in ship_rl.SHIP_STAGES],
+            eval_episodes=TR_RL_EVAL, cpu_probe_steps=TR_RL_CPU_PROBE),
+            ["whitted_trace", "nearest_hit"])
+        sac = run("sac_ship", lambda: ship_rl.main([
+            "sac-ship", "--timesteps", str(TR_SAC_STEPS), "--eval-episodes",
+            str(TR_RL_EVAL), "--cpu-probe-steps", str(TR_RL_CPU_PROBE)]),
+            ["whitted_trace", "nearest_hit"])
+    finally:
+        os.chdir(here)
+    train = json.loads((out / "multi_work" /
+                        "final_training_report.json").read_text())
+    ho = json.loads(held.read_text())
+    cx = json.loads((out / "complex_work" /
+                     "held_out_complex_test.json").read_text())
+    students = {name: {k: r[k] for k in ("policy_hit_rate",
+                                         "random_hit_rate", "ratio")}
+                for name, r in (
+                    ("ensemble_chandelier", json.loads(
+                        (out / "held_out_ensemble_multi.json").read_text())),
+                    ("episodes_cornell", json.loads(
+                        (out / "held_out_cornell_multi.json").read_text())))}
+    emit({"phase": "train_recipes", **card,
+          "train_multi": {
+              "protocol": f"{TR_MULTI[0]} scenes x {TR_MULTI[1]} walkers, "
+                          "FBConfig(), chunks guide_prob 0/0.25/0.5",
+              "avg_hit_rate":
+                  train["performance_statistics"]["avg_hit_rate"],
+              "scenes": len(train["all_performances"]),
+              "buffer": train["training_summary"]["final_buffer_size"],
+              "transitions": train["training_summary"]["agent_stats"][
+                  "performance"]["total_rays"]},
+          "eval_multi": {k: ho[k] for k in ("num_scenes",
+                                            "episodes_per_scene", "seed",
+                                            "policy_hit_rate",
+                                            "random_hit_rate", "ratio")},
+          "eval_multi_jax_recorded": JAX_MULTI_HELD_OUT,
+          "train_complex": {"cut": f"{TR_COMPLEX[0]} scenes x "
+                                   f"{TR_COMPLEX[1]} walkers", **cx},
+          "ensemble_render": ens_held["render_level"],
+          "episodes_student_render": epi_stats["comparison"],
+          "students_eval_multi": students,
+          "ppo_ship": {"stages": [r["timesteps"] for r in
+                                  ppo["config"]["stages"]],
+                       "hit_rate": ppo["card"]["eval"]["light_hit_rate"],
+                       "z_vs_random": ppo["card"]["light_hit_z_vs_random"],
+                       "steps_per_sec": ppo["card"]["steps_per_sec"]},
+          "sac_ship": {"active_steps": sac["card"]["total_steps"],
+                       "hit_rate": sac["card"]["eval"]["light_hit_rate"],
+                       "z_vs_random": sac["card"]["light_hit_z_vs_random"]},
+          "recipes": recipes, "seconds": time.perf_counter() - t0})
+    for f in (multi, held, complex_t, ens, epi, out / "ppo_raytracer.npz",
+              out / "sac_raytracer_card.npz"):
+        check(f.exists(), f"train_recipes: {f.name} not written")
+    check(len(train["all_performances"]) == TR_MULTI[0]
+          and recipes["train_multi"]["launches"]["nearest_hit"]
+          == TR_MULTI[0] * FBConfig().max_bounces,
+          f"train_recipes: train-multi {recipes['train_multi']}")
+    check(recipes["eval_multi"]["launches"]["nearest_hit"]
+          == 2 * TR_EVAL[0] * FBConfig().max_bounces
+          and 0 < ho["random_hit_rate"] < 1
+          and 0 <= ho["policy_hit_rate"] <= 1,
+          f"train_recipes: eval-multi {ho}")
+    check(epi_stats["traditional"]["total_rays"] > 0
+          and epi_stats["fb"]["total_rays"] > 0,
+          f"train_recipes: the episode student's eval {epi_stats}")
+
+
+def teacher_renders_phase(dev, card, launches):
+    """Phase teacher_renders: the route on which a card-trained teacher's
+    light hits are read (PERF.md §6): ship_models eval of each
+    teacher this run trained (ship_tools' chandelier teacher, cut;
+    train_recipes' multi-scene and complex teachers) as a full guide on
+    the chandelier at 200x100@8spp/8, seed 5, the harness's stepwise side
+    (the nearest-hit kernel a level, the guide between levels), against
+    the traditional frame on the same route.  Small-light hits and the
+    guided bounces' successes; the traditional frame must make
+    TEACHER_TRADITIONAL_HITS, the count every recorded render of this
+    route gave.  No bound on a teacher's own hits: they vary from 0 to
+    ~2,000 with the seed in both packages (PERF.md §6), and these
+    teachers are cut or trained on other scenes."""
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "ship"
+    renders = {}
+    here = os.getcwd()
+    os.chdir(ROOT)
+    try:
+        for name in ("fb_chandelier_trained", "fb_multi_scene_trained",
+                     "fb_complex_trained"):
+            reset_counts()
+            wall, st = quiet(lambda: ship_models.main([
+                "eval", "--scene", "chandelier", "--model",
+                str(out / f"{name}.npz"), "--size",
+                f"{TEACHER_FRAME[0]}x{TEACHER_FRAME[1]}", "--spp",
+                str(TEACHER_FRAME[2]), "--seed", str(TEACHER_SEED),
+                "--out", str(out / f"eval_{name}")]),
+                out / f"eval_{name}.log")
+            c = launch_counts()
+            add_launches(launches, c)
+            renders[name] = {
+                "wall_seconds": wall, "launches": c,
+                "implementations": st["implementations"],
+                "traditional_small_light_hits":
+                    st["traditional"]["small_light_hits"],
+                "fb_small_light_hits": st["fb"]["small_light_hits"],
+                "fb_success_rate": st["fb"].get("fb_success_rate"),
+                "small_light_improvement":
+                    st["comparison"]["small_light_improvement"]}
+    finally:
+        os.chdir(here)
+    emit({"phase": "teacher_renders", **card,
+          "frame": "chandelier {}x{}@{}spp/8 seed {}".format(
+              *TEACHER_FRAME, TEACHER_SEED),
+          "renders": renders, "seconds": time.perf_counter() - t0})
+    for name, r in renders.items():
+        impl = r["implementations"]
+        check(impl["traditional"] == impl["fb"] == "stepwise"
+              and r["launches"]["nearest_hit"] > 0,
+              f"teacher_renders: {name} route {r}")
+        check(r["traditional_small_light_hits"] == TEACHER_TRADITIONAL_HITS,
+              f"teacher_renders: {name} traditional frame {r}")
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4079,6 +4326,14 @@ def main():
     figures_phase(dev, card, cr_total)
     emit({"phase": "curriculum_recipes_total", "launches": cr_total,
           "seconds": time.perf_counter() - t_cr})
+    # The training recipes: train-multi and eval-multi uncut, the other
+    # recipes cut to size.
+    t_tr = time.perf_counter()
+    tr_total = {}
+    train_recipes_phase(dev, card, tr_total)
+    teacher_renders_phase(dev, card, tr_total)
+    emit({"phase": "training_recipes_total", "launches": tr_total,
+          "seconds": time.perf_counter() - t_tr})
     by_entry = {"path_trace": new_routes["path_trace"]["unguided"],
                 "path_trace_guided": new_routes["path_trace"]["bf16_mma"],
                 "path_level": new_routes["path_level"],
@@ -4102,10 +4357,16 @@ def main():
                 "path_level": cr_total["path_level"],
                 "whitted_trace": cr_total["whitted_trace"],
                 "nearest_hit": cr_total["nearest_hit"]}
+    tr_entry = {"path_trace": tr_total["path_trace"]["unguided"],
+                "path_trace_guided": tr_total["path_trace"]["bf16_mma"],
+                "path_level": tr_total["path_level"],
+                "whitted_trace": tr_total["whitted_trace"],
+                "nearest_hit": tr_total["nearest_hit"]}
     for k in kernels:
         k["launches_harness_distill_output5"] = by_entry[k["name"]]
         k["launches_frame_extras"] = fx_entry[k["name"]]
         k["launches_curriculum_recipes"] = cr_entry[k["name"]]
+        k["launches_training_recipes"] = tr_entry[k["name"]]
         if k["name"] in ("whitted_trace", "nearest_hit"):
             k["launches_rl"] = rl_routes[k["name"]]
     emit({"kernels": kernels + [walk_kernel, distill_kernel,

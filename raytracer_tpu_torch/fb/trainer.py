@@ -17,7 +17,8 @@ schema; ``test_on_complex``/``test_on_chandelier`` the held-out tests.
 
 Each scene's experience is one ``fb/trajectory.py`` walk (the nearest-hit
 kernel a step on the card), its draws from the trainer's
-``torch.Generator`` (seeded ``seed + 17``, as JAX's key).  The render probe
+``torch.Generator`` (seeded ``seed + 17``, as JAX's key) through
+``walk_draws``, the one place a run draws them.  The render probe
 runs ``render_path(impl=PROBE_IMPL)``: "hybrid", one level kernel a bounce
 with the live agent between levels (JAX runs its stepwise route; the two
 give the same image, ``chip_smoke.py`` phase ``fb_agent``).
@@ -41,7 +42,7 @@ from ..trace import sampling
 from ..trace.path import make_observation
 from .agent import FBResearchAgent
 from .config import FBConfig
-from .trajectory import draw_walk, generate_trajectories
+from .trajectory import WalkDraws, draw_walk, generate_trajectories
 
 # Scene-type cycle matching the report's counts over 100 scenes
 # (complex/cornell/mirror/glass ×15, simple/many/occluded/chandelier ×10).
@@ -112,6 +113,15 @@ class MultiSceneFBTrainer:
         return scene, name, stype
 
     # -- experience --------------------------------------------------------
+    def walk_draws(self, episodes: int, scene: Scene,
+                   guided: bool) -> WalkDraws:
+        """The planes of one scene's walk, drawn by the trainer's
+        generator (JAX splits its key once a scene here)."""
+        return draw_walk(episodes, scene.num_spheres,
+                         self.config.max_bounces,
+                         start_bias=self.START_BIAS, guided=guided,
+                         generator=self._gen, device=self.device)
+
     def train_on_scene(self, scene: Scene, name: str,
                        episodes: int) -> float:
         """One walk of ``episodes`` walkers on the card, fed to the agent;
@@ -122,10 +132,7 @@ class MultiSceneFBTrainer:
             gkw = dict(guide=self.agent.guide(), guide_prob=self.guide_prob,
                        guide_noise=max(self.agent.noise_scale,
                                        self.agent.config.min_noise))
-        draws = draw_walk(episodes, scene.num_spheres,
-                          self.config.max_bounces,
-                          start_bias=self.START_BIAS, guided=guided,
-                          generator=self._gen, device=self.device)
+        draws = self.walk_draws(episodes, scene, guided)
         batch = generate_trajectories(scene, draws,
                                       max_steps=self.config.max_bounces,
                                       start_bias=self.START_BIAS,

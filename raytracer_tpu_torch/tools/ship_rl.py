@@ -184,39 +184,49 @@ def cmd_ppo_sweep(args):
     return out
 
 
-def cmd_ppo_ship(args):
+def cmd_ppo_ship(args, stages=None, eval_episodes=None,
+                 cpu_probe_steps=None):
+    """``ppo-ship``; ``stages``, ``eval_episodes`` and
+    ``cpu_probe_steps`` default to the script's ``SHIP_STAGES``,
+    ``SHIP_EVAL_EPISODES`` and ``CPU_PROBE_STEPS`` (the CLI takes no
+    option for them, as the script takes none)."""
     import torch
 
     from ..agents.ppo import PPOConfig, PPOTrainer
     from ..compare.workbench import compare_rl_vs_random
     from ..core.device import resolve_device
 
+    stages = SHIP_STAGES if stages is None else stages
+    episodes = SHIP_EVAL_EPISODES if eval_episodes is None \
+        else eval_episodes
+    probe_steps = CPU_PROBE_STEPS if cpu_probe_steps is None \
+        else cpu_probe_steps
     dev = resolve_device(args.device)
     log(f"device: {_device_name(dev)}")
     env = make_env(dev)
     tr = PPOTrainer(env, PPOConfig(hidden=SHIP_HIDDEN,
                                    batch_envs=SHIP_BATCH), seed=0)
     t0 = time.perf_counter()
-    recs = train_stages(tr, SHIP_STAGES)
+    recs = train_stages(tr, stages)
     wall = time.perf_counter() - t0
     total = sum(r["timesteps"] for r in recs)
     OUT.mkdir(parents=True, exist_ok=True)
     tr.save(OUT / "ppo_raytracer.npz")
     bench = compare_rl_vs_random(env, tr.predict,
-                                 episodes=SHIP_EVAL_EPISODES)
-    z = hit_z(bench["rl"]["light_hit_rate"], SHIP_EVAL_EPISODES,
-              bench["random"]["light_hit_rate"], SHIP_EVAL_EPISODES)
+                                 episodes=episodes)
+    z = hit_z(bench["rl"]["light_hit_rate"], episodes,
+              bench["random"]["light_hit_rate"], episodes)
     bench["light_hit_z"] = z
     with open(OUT / "ppo_raytracer_benchmark.json", "w") as f:
         json.dump(bench, f, indent=2, default=float)
     log(f"hit_rate rl={bench['rl']['light_hit_rate']:.4f} "
         f"random={bench['random']['light_hit_rate']:.4f} z={z:+.2f}")
 
-    # The matched configuration on the CPU, CPU_PROBE_STEPS steps.
+    # The matched configuration on the CPU, probe_steps steps.
     rec = PPOTrainer(make_env(torch.device("cpu")),
                      PPOConfig(hidden=SHIP_HIDDEN, batch_envs=SHIP_BATCH,
                                ent_coef=0.1),
-                     seed=0).train_on_device(CPU_PROBE_STEPS)
+                     seed=0).train_on_device(probe_steps)
     cpu = {k: rec[k] for k in ("backend", "wall_seconds", "timesteps")}
     # Steady state from the stages after the first (the first pays the
     # kernels' first launches).
@@ -243,7 +253,7 @@ def cmd_ppo_ship(args):
             "steps_per_sec": total / wall, "eval": bench["rl"],
             "light_hit_z_vs_random": z,
         },
-        "cpu_probe_100k_steps": {**cpu, "steps": CPU_PROBE_STEPS},
+        "cpu_probe_100k_steps": {**cpu, "steps": probe_steps},
         "card_100k_steady_state_seconds":
             100_000 * ss_wall / max(ss_steps, 1),
         "card_steady_state_steps_per_sec": ss_steps / max(ss_wall, 1e-9),

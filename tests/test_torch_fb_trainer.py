@@ -1,12 +1,12 @@
 """The port's FB trainers (raytracer_tpu_torch/fb/trainer.py) and event
 writer (utils/tb.py), at a tiny config on the CPU.
 
-Training draws its own walks (a ``torch.Generator``), so bit parity with
-JAX is not possible here: the trainers are held as JAX holds its own
-(tests/test_fb_trainer.py): the report's schema, its files, resume, the
-render probe's determinism and selection, and seeded statistics of a run.
-The walk, the updates and the checkpoints they are built from are held
-against JAX in tests/test_torch_fb_walk.py and test_torch_fb_learner.py.
+Here the trainers draw their own walks (a ``torch.Generator``) and are
+held as JAX holds its own (tests/test_fb_trainer.py): the report's schema,
+its files, resume, the render probe's determinism and selection, and
+seeded statistics of a run.  A whole run fed JAX's draws is held against
+JAX's in tests/test_torch_fb_train_run.py; the walk, the updates and the
+checkpoints in tests/test_torch_fb_walk.py and test_torch_fb_learner.py.
 
 * The final report's nested key sets equal those JAX's ``_final_report``
   builds (tests/test_fb_trainer.py:98-123), with a probe history.

@@ -1,0 +1,9 @@
+"""The device's idle share of the traced sub-window: 1 - (the union of its
+activity intervals) / (the window), in percent.  Device trace."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)

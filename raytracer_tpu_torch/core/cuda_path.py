@@ -40,6 +40,7 @@ from .cuda_intersect import SphereTable
 from .intersect import NearestHitC, inside_threshold, nearest_hit_c
 from ..trace.path import _direct_lighting_c, is_student, observation_c
 from ..trace.sampling import fb_action_to_direction_c, local_to_world_c
+from ..utils.profiling import count, span
 
 # Compile-time capacities of csrc/path_common.cuh and path_trace.cu
 # (kMaxSpheres, kMaxEmissive, kMaxBounces) and csrc/student.cuh
@@ -311,36 +312,37 @@ def path_trace(origins: torch.Tensor, dirs: torch.Tensor,
         return path_trace_plain(origins, dirs, uniforms, table, **kw)
     if dev.type != "cuda":
         raise ValueError(f"path_trace runs on cuda or cpu, not {dev}")
-    R = origins.shape[0]
-    rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
-    counts = torch.empty((R, 6 if guide is not None else 4),
-                         dtype=torch.int32, device=dev)
-    route = "unguided" if guide is None else guided_route(guide)
-    bg = [float(b) for b in background]
-    head = (origins.data_ptr(), dirs.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(),
-            None if fb_uniforms is None else fb_uniforms.data_ptr(),
-            float(fb_prob), table.spheres.data_ptr(), table.flags.data_ptr(),
-            table.emissive.data_ptr(), table.inside.data_ptr(),
-            table.light_cut.data_ptr(), len(table.spec),
-            len(table.emissive_idx), R, max_bounces, bg[0], bg[1], bg[2],
-            int(fast))
-    sargs = student_args(guide, route, dev)
-    tail = (rgb.data_ptr(), counts.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if route == "bf16_mma":
-            next_tile = torch.zeros(1, dtype=torch.int64, device=dev)
-            err = _library("path_guided").path_guided_launch(
-                *head, *sargs, *tail, next_tile.data_ptr(), stream)
-        else:
-            err = _library("path_trace").path_trace_launch(
-                *head, *sargs, *tail, stream)
-    if err != 0:
-        raise RuntimeError(f"path_trace kernel launch failed ({route} "
-                           f"route): CUDA error {err}")
-    path_trace.launches += 1
-    path_trace.route_launches[route] += 1
+    with span("raytracer.path_kernel"):
+        R = origins.shape[0]
+        rgb = torch.empty((R, 3), dtype=torch.float32, device=dev)
+        counts = torch.empty((R, 6 if guide is not None else 4),
+                             dtype=torch.int32, device=dev)
+        route = "unguided" if guide is None else guided_route(guide)
+        bg = [float(b) for b in background]
+        head = (origins.data_ptr(), dirs.data_ptr(),
+                None if uniforms is None else uniforms.data_ptr(),
+                None if fb_uniforms is None else fb_uniforms.data_ptr(),
+                float(fb_prob), table.spheres.data_ptr(),
+                table.flags.data_ptr(), table.emissive.data_ptr(),
+                table.inside.data_ptr(), table.light_cut.data_ptr(),
+                len(table.spec), len(table.emissive_idx), R, max_bounces,
+                bg[0], bg[1], bg[2], int(fast))
+        sargs = student_args(guide, route, dev)
+        tail = (rgb.data_ptr(), counts.data_ptr())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if route == "bf16_mma":
+                next_tile = torch.zeros(1, dtype=torch.int64, device=dev)
+                err = _library("path_guided").path_guided_launch(
+                    *head, *sargs, *tail, next_tile.data_ptr(), stream)
+            else:
+                err = _library("path_trace").path_trace_launch(
+                    *head, *sargs, *tail, stream)
+        if err != 0:
+            raise RuntimeError(f"path_trace kernel launch failed ({route} "
+                               f"route): CUDA error {err}")
+        path_trace.launches += 1
+        path_trace.route_launches[route] += 1
     return rgb, counts
 
 
@@ -539,41 +541,46 @@ def trace_levels(level_fn, origins: torch.Tensor, dirs: torch.Tensor,
     term_emis = torch.zeros(R, dtype=torch.bool, device=dev)
     levels = []
     for lvl in range(max_bounces):
-        guided_level = guided and (guide_max_level is None
-                                   or lvl < guide_max_level)
-        lv = level_fn(o, d, running, None if uniforms is None
-                      else uniforms[lvl], table, fast=fast,
-                      want_hit=guided_level)
-        st = lv.state
-        emis = (st & ST_EMISSIVE) != 0
-        cont = (st & ST_CONT) != 0
-        d_next = lv.d_next
-        if guided_level:
-            use_fb = (cont & ((st & ST_MIRROR) == 0)
-                      & (fb_uniforms[lvl] < fb_prob))
-            h = lv.hit
-            obs = observation_c(h[:, 0], h[:, 1], h[:, 2], d[:, 0], d[:, 1],
-                                d[:, 2], *h[:, 3:].unbind(1), lvl,
-                                max_bounces)
-            act = torch.clamp(guide(obs), -1.0, 1.0)
-            g = fb_action_to_direction_c(act[:, 0], act[:, 1], h[:, 3],
-                                         h[:, 4], h[:, 5])
-            d_next = torch.where(use_fb[:, None], torch.stack(g, dim=-1),
-                                 d_next)
-            counts[:, 4] += use_fb
+        with span("raytracer.level"):
+            guided_level = guided and (guide_max_level is None
+                                       or lvl < guide_max_level)
+            with span("raytracer.level_step"):
+                lv = level_fn(o, d, running, None if uniforms is None
+                              else uniforms[lvl], table, fast=fast,
+                              want_hit=guided_level)
+            st = lv.state
+            emis = (st & ST_EMISSIVE) != 0
+            cont = (st & ST_CONT) != 0
+            d_next = lv.d_next
+            if guided_level:
+                with span("raytracer.guide"):
+                    use_fb = (cont & ((st & ST_MIRROR) == 0)
+                              & (fb_uniforms[lvl] < fb_prob))
+                    h = lv.hit
+                    obs = observation_c(h[:, 0], h[:, 1], h[:, 2], d[:, 0],
+                                        d[:, 1], d[:, 2], *h[:, 3:].unbind(1),
+                                        lvl, max_bounces)
+                    count("guide_rows", obs.shape[0])
+                    act = torch.clamp(guide(obs), -1.0, 1.0)
+                    g = fb_action_to_direction_c(act[:, 0], act[:, 1],
+                                                 h[:, 3], h[:, 4], h[:, 5])
+                    d_next = torch.where(use_fb[:, None],
+                                         torch.stack(g, dim=-1), d_next)
+                counts[:, 4] += use_fb
+            counts[:, 0] += running
+            counts[:, 1] += (st & ST_FOUND) != 0
+            counts[:, 2] += emis
+            counts[:, 3] += (st & ST_SMALL) != 0
+            term_emis |= emis
+            levels.append((st, lv.rec))
+            o, d, running = lv.o_next, d_next, cont
+    with span("raytracer.fold"):
+        # A ray still running after the last level makes one more trace()
+        # call that the reference counts before its bounce-budget return.
         counts[:, 0] += running
-        counts[:, 1] += (st & ST_FOUND) != 0
-        counts[:, 2] += emis
-        counts[:, 3] += (st & ST_SMALL) != 0
-        term_emis |= emis
-        levels.append((st, lv.rec))
-        o, d, running = lv.o_next, d_next, cont
-    # A ray still running after the last level makes one more trace() call
-    # that the reference counts before its bounce-budget return.
-    counts[:, 0] += running
-    if guided:
-        counts[:, 5] = torch.where(term_emis, counts[:, 4], 0)
-    return fold_levels(levels, background), counts
+        if guided:
+            counts[:, 5] = torch.where(term_emis, counts[:, 4], 0)
+        return fold_levels(levels, background), counts
 
 
 def path_trace_plain(origins: torch.Tensor, dirs: torch.Tensor,

@@ -33,6 +33,7 @@ from ..core.device import resolve_device
 from ..core.vec import div_scalar
 from ..scene.types import Scene
 from ..trace.path import PathStats, trace_path
+from ..utils.profiling import span, spanned
 from .camera import perspective_rays
 
 
@@ -49,6 +50,7 @@ def _average(sample_sum: torch.Tensor, spp: int) -> torch.Tensor:
     return torch.clamp_max(div_scalar(pixel, 255.0), 1.0)
 
 
+@spanned("raytracer.render")
 def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
                 max_bounces: int = 3, fov: float = 60.0,
                 camera_position=(0.0, 2.0, 0.0),
@@ -83,8 +85,9 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
     if spp_chunk is not None and impl not in ("kernel", "plain"):
         raise ValueError(f"impl={impl!r} traces the full wavefront; "
                          "spp_chunk applies to impl='kernel' or 'plain'")
-    dev = resolve_device(device)
-    scene = scene.to(dev)
+    with span("raytracer.render_setup"):
+        dev = resolve_device(device)
+        scene = scene.to(dev)
     chunked = spp_chunk is not None and spp_chunk < spp
     if chunked and spp % spp_chunk:
         raise ValueError(f"spp={spp} not divisible by spp_chunk={spp_chunk}")
@@ -101,14 +104,15 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
                              f"[{chunks}, ...], got {tuple(plane.shape)}")
     total, stats = None, []
     for c in range(chunks):
-        if jitter is None:
-            jit_c = torch.rand((per, height, width, 2), generator=generator,
-                               device=dev)
-        else:
-            jit_c = jitter[c * per:(c + 1) * per].to(dev)
-        origins, dirs = _camera_bundle(jit_c, width=width, height=height,
-                                       fov=fov,
-                                       camera_position=camera_position)
+        with span("raytracer.camera"):
+            if jitter is None:
+                jit_c = torch.rand((per, height, width, 2),
+                                   generator=generator, device=dev)
+            else:
+                jit_c = jitter[c * per:(c + 1) * per].to(dev)
+            origins, dirs = _camera_bundle(jit_c, width=width, height=height,
+                                           fov=fov,
+                                           camera_position=camera_position)
         rgb, st = trace_path(
             scene, origins, dirs, max_bounces=max_bounces,
             mirror_threshold=mirror_threshold, background=background,
@@ -116,14 +120,16 @@ def render_path(scene: Scene, *, width: int, height: int, spp: int = 4,
             fb_uniforms=_chunk_plane(fb_uniforms, c, chunked),
             generator=generator, guide_fn=guide_fn, fb_prob=fb_prob,
             impl=impl, guide_max_level=guide_max_level, precision=precision)
-        sums = rgb.reshape(per, height, width, 3).sum(dim=0)
-        total = sums if total is None else total + sums
+        with span("raytracer.image"):
+            sums = rgb.reshape(per, height, width, 3).sum(dim=0)
+            total = sums if total is None else total + sums
         stats.append(st)
-    if chunks == 1:
-        return _average(total, spp), stats[0]
-    return _average(total, spp), PathStats(
-        *(sum(getattr(s, f.name) for s in stats)
-          for f in dataclasses.fields(PathStats)))
+    with span("raytracer.image"):
+        if chunks == 1:
+            return _average(total, spp), stats[0]
+        return _average(total, spp), PathStats(
+            *(sum(getattr(s, f.name) for s in stats)
+              for f in dataclasses.fields(PathStats)))
 
 
 def _chunk_plane(plane, c: int, chunked: bool):

@@ -50,6 +50,7 @@ import torch
 
 from ..core import vec
 from ..scene.types import Scene
+from ..utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,18 +83,25 @@ class PathStats:
                 for f in dataclasses.fields(self)}
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A scene tensor on the host, counted in ``host_reads``: on a card
+    each read waits for the device."""
+    count("host_reads")
+    return t.detach().cpu().numpy()
+
+
 def scene_spec(scene: Scene) -> tuple:
     """Per-sphere rows ``(cx, cy, cz, r, colr, colg, colb, refl, transp,
     emit, ior, id)`` as Python floats, exact images of the float32 table.
     Radius-0 padding rows are kept, as in the JAX package."""
-    c = scene.centre.detach().cpu().numpy()
-    r = scene.radius.detach().cpu().numpy()
-    col = scene.colour.detach().cpu().numpy()
-    rf = scene.reflective.detach().cpu().numpy()
-    tr = scene.transparent.detach().cpu().numpy()
-    em = scene.emitive.detach().cpu().numpy()
-    io = scene.ior.detach().cpu().numpy()
-    sid = scene.id.detach().cpu().numpy()
+    c = _host(scene.centre)
+    r = _host(scene.radius)
+    col = _host(scene.colour)
+    rf = _host(scene.reflective)
+    tr = _host(scene.transparent)
+    em = _host(scene.emitive)
+    io = _host(scene.ior)
+    sid = _host(scene.id)
     return tuple(
         (float(c[s, 0]), float(c[s, 1]), float(c[s, 2]), float(r[s]),
          float(col[s, 0]), float(col[s, 1]), float(col[s, 2]),
@@ -104,7 +112,7 @@ def scene_spec(scene: Scene) -> tuple:
 
 def emissive_indices(scene: Scene) -> tuple:
     """Indices of the emissive spheres, ascending."""
-    em = scene.emitive.detach().cpu().numpy() > 0
+    em = _host(scene.emitive) > 0
     return tuple(int(i) for i in np.nonzero(em)[0])
 
 
@@ -112,9 +120,9 @@ def no_diffuse_possible(scene: Scene, mirror_threshold: float) -> bool:
     """True when every real (radius > 0) sphere is emissive or mirrors at
     this threshold: then no diffuse bounce can fire and no uniform is read
     (the chandelier traditional configuration, mirror_threshold=0.0)."""
-    real = scene.radius.detach().cpu().numpy() > 0
-    em = scene.emitive.detach().cpu().numpy() > 0
-    mirror = scene.reflective.detach().cpu().numpy() > mirror_threshold
+    real = _host(scene.radius) > 0
+    em = _host(scene.emitive) > 0
+    mirror = _host(scene.reflective) > mirror_threshold
     return bool((em | mirror)[real].all())
 
 
@@ -227,45 +235,49 @@ def trace_path(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor, *,
             "impl='kernel' takes distilled-student guides only "
             "(fb.distill.DistilledGuide.as_guide_fn); full agents use "
             "impl='stepwise', 'hybrid' or 'plain'")
-    from ..core import cuda_path    # imports this module's helpers
-    dev = scene.device
-    origins = origins.to(dev, torch.float32).contiguous()
-    dirs = dirs.to(dev, torch.float32).contiguous()
-    R = origins.shape[0]
-    table = cuda_path.path_table(scene_spec(scene), emissive_indices(scene),
-                                 mirror_threshold, dev)
-    if no_diffuse_possible(scene, mirror_threshold):
-        # No lane can be diffuse: no draw is read and the guide never fires.
-        uniforms = fb_uniforms = guide_fn = None
-    else:
-        uniforms = _plane("uniforms", uniforms, (max_bounces, R, 2),
-                          generator, dev)
-        fb_uniforms = None if guide_fn is None else _plane(
-            "fb_uniforms", fb_uniforms, (max_bounces, R), generator, dev)
-    kw = dict(max_bounces=max_bounces,
-              background=tuple(float(b) for b in background),
-              fast=precision == "fast", guide=guide_fn,
-              fb_uniforms=fb_uniforms, fb_prob=float(fb_prob))
-    if impl == "hybrid":
-        # JAX _trace_path_hybrid_impl: one level kernel a level, the guide
-        # and the fb gate between levels as tensor ops, the fold after.
-        from ..core import cuda_level
-        rgb, counts = cuda_path.trace_levels(cuda_level.path_level, origins,
-                                             dirs, uniforms, table, **kw)
-    elif stepwise:
-        # JAX _trace_path_stepwise: one nearest-hit sweep a level, the rest
-        # of the level, the guide and the fb gate as tensor ops.
-        from ..core.cuda_intersect import sphere_table
-        level = functools.partial(cuda_path.level_stepwise,
-                                  sweep=sphere_table(scene))
-        rgb, counts = cuda_path.trace_levels(
-            level, origins, dirs, uniforms, table,
-            guide_max_level=guide_max_level, **kw)
-    else:
-        fn = (cuda_path.path_trace if impl == "kernel"
-              else cuda_path.path_trace_plain)
-        rgb, counts = fn(origins, dirs, uniforms, table, **kw)
-    return rgb, PathStats.from_counts(counts)
+    with span("raytracer.trace_setup"):
+        from ..core import cuda_path    # imports this module's helpers
+        dev = scene.device
+        origins = origins.to(dev, torch.float32).contiguous()
+        dirs = dirs.to(dev, torch.float32).contiguous()
+        R = origins.shape[0]
+        table = cuda_path.path_table(scene_spec(scene),
+                                     emissive_indices(scene),
+                                     mirror_threshold, dev)
+        if no_diffuse_possible(scene, mirror_threshold):
+            # No lane can be diffuse: no draw is read and the guide never
+            # fires.
+            uniforms = fb_uniforms = guide_fn = None
+        else:
+            uniforms = _plane("uniforms", uniforms, (max_bounces, R, 2),
+                              generator, dev)
+            fb_uniforms = None if guide_fn is None else _plane(
+                "fb_uniforms", fb_uniforms, (max_bounces, R), generator, dev)
+        kw = dict(max_bounces=max_bounces,
+                  background=tuple(float(b) for b in background),
+                  fast=precision == "fast", guide=guide_fn,
+                  fb_uniforms=fb_uniforms, fb_prob=float(fb_prob))
+        if impl == "hybrid":
+            # JAX _trace_path_hybrid_impl: one level kernel a level, the
+            # guide and the fb gate between levels as tensor ops, the fold
+            # after.
+            from ..core import cuda_level
+            route = functools.partial(cuda_path.trace_levels,
+                                      cuda_level.path_level)
+        elif stepwise:
+            # JAX _trace_path_stepwise: one nearest-hit sweep a level, the
+            # rest of the level, the guide and the fb gate as tensor ops.
+            from ..core.cuda_intersect import sphere_table
+            level = functools.partial(cuda_path.level_stepwise,
+                                      sweep=sphere_table(scene))
+            route = functools.partial(cuda_path.trace_levels, level,
+                                      guide_max_level=guide_max_level)
+        else:
+            route = (cuda_path.path_trace if impl == "kernel"
+                     else cuda_path.path_trace_plain)
+    rgb, counts = route(origins, dirs, uniforms, table, **kw)
+    with span("raytracer.fold"):
+        return rgb, PathStats.from_counts(counts)
 
 
 def _plane(name, plane, shape, generator, dev):

@@ -25,7 +25,11 @@ just after:
   nearest-hit kernel a level, the guide between levels; every level
   guided, and guide_max_level=3) and impl="hybrid" (the level kernel a
   level); phases fb_agent and fb_agent_times, then one 800x600@8spp/8
-  frame with guide_max_level=3 (fb_agent_800x600);
+  frame with guide_max_level=3 (fb_agent_800x600); then the f32 guide's
+  row kernel (csrc/guide_norm.cu) on one [160,000, 512] LayerNorm +
+  residual site against its plain version and its byte bound, and the
+  guide a call on a hybrid level's rows, fused and on the module path
+  (guide_norm);
 * the FB learner (the JAX CLI's train-fb-chandelier): ChandelierOnlyTrainer
   at its own config (full width), 12 scenes of 150 walkers and 12 more
   with the guide in the walk (guide_prob=0.25), through run_training: each
@@ -128,8 +132,8 @@ from raytracer_tpu_torch.compare.workbench import (compare_rl_vs_random,
                                                    evaluate_policy,
                                                    load_policy,
                                                    random_actions)
-from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
-                                      cuda_whitted, native, vec)
+from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_norm,
+                                      cuda_path, cuda_whitted, native, vec)
 from raytracer_tpu_torch.env.raytracer_env import RayTracerEnv
 from raytracer_tpu_torch.env.scenes import (dynamic_scene,
                                             training_scene_complete)
@@ -139,13 +143,14 @@ from raytracer_tpu_torch.compare.harness import (chandelier_comparison,
                                                  complex_comparison,
                                                  run_comparison, side_seeds)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
-from raytracer_tpu_torch.fb import distill, quantize
+from raytracer_tpu_torch.fb import distill, fused_guide, quantize
 from raytracer_tpu_torch.fb import trajectory as fb_walk
 from raytracer_tpu_torch.fb.agent import FBResearchAgent, loss_terms
 from raytracer_tpu_torch.fb.config import FBConfig
 from raytracer_tpu_torch.fb.distill import DistilledGuide, distill_agent
 from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
                                               small_light_indices)
+from raytracer_tpu_torch.fb.networks import Dense, LayerNorm
 from raytracer_tpu_torch.fb.registry import (STUDENTS_DIR, guide_for,
                                              model_path_for)
 from raytracer_tpu_torch.fb.trainer import ChandelierOnlyTrainer
@@ -153,6 +158,7 @@ from raytracer_tpu_torch.parallel import mesh as pmesh
 from raytracer_tpu_torch.render import animation
 from raytracer_tpu_torch.scene.templates import generate_scene
 from raytracer_tpu_torch.utils.checkpoint import PARTS, load_fb, save_fb
+from raytracer_tpu_torch.utils import profiling
 from raytracer_tpu_torch.utils.profiling import device_trace
 from raytracer_tpu_torch.render.camera import grid_rays, perspective_rays
 from raytracer_tpu_torch.render import path_renderer
@@ -177,7 +183,7 @@ GOLDEN = ROOT / "showcase" / "parity_fullres" / "chandelier_800x600_ref.npy"
 WHITTED_GOLDEN = (ROOT / "showcase" / "parity_fullres" /
                   "true_original_601_ref.npy")
 SOURCES = ("path_trace", "path_guided", "whitted_trace", "nearest_hit",
-           "path_level")
+           "path_level", "guide_norm")
 SEED = 0
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
@@ -275,6 +281,18 @@ A_W, A_H = 200, 100
 A_GML = 3
 A_BIG_W, A_BIG_H = 800, 600
 PEAK_F32_FLOPS = 67e12
+# The f32 guide's row kernel (csrc/guide_norm.cu): one site of a residual
+# block's second layer (LayerNorm, + residual) over a guided level's rows at
+# the encoder's width; it reads y and the residual and writes y.
+GN_ROWS, GN_WIDTH = A_W * A_H * SPP, 512
+GN_BYTES = 3 * GN_ROWS * GN_WIDTH * 4
+# Its launches a guide call (fb/fused_guide.py), and the kinds of site the
+# FBConfig() guide holds at each width: (LayerNorm?, post, width).
+GN_SITES = 16
+GN_KINDS = {("ln", "relu", 512), ("ln", "residual", 512),
+            ("ln", "relu", 256), ("ln", "residual", 256),
+            ("bias", None, 512), ("bias", "relu", 512),
+            ("bias", "residual", 512), ("bias", None, 128)}
 # The FB learner (ChandelierOnlyTrainer at its own config, full width):
 # scenes without the guide in the walk, then with guide_prob 0.25, walkers
 # a scene (the JAX CLI's training steps a scene, raytracer_tpu/cli.py:246),
@@ -505,6 +523,7 @@ def reset_counts():
     cuda_whitted.whitted_trace.launches = 0
     cuda_intersect.nearest_hit.launches = 0
     cuda_level.path_level.launches = 0
+    cuda_norm.guide_norm.launches = 0
 
 
 def read_counts():
@@ -1331,7 +1350,8 @@ def fb_agent_phases(dev, card, scene, params):
         launches[name] = {
             "nearest_hit": cuda_intersect.nearest_hit.launches,
             "path_level": cuda_level.path_level.launches,
-            "path_trace": cuda_path.path_trace.launches}
+            "path_trace": cuda_path.path_trace.launches,
+            "guide_norm": cuda_norm.guide_norm.launches}
         frames[name] = (img, st.as_dict())
         check(tuple(img.shape) == (A_H, A_W, 3)
               and bool(torch.isfinite(img).all()),
@@ -1347,6 +1367,12 @@ def fb_agent_phases(dev, card, scene, params):
     check(launches["hybrid"]["path_level"] == BOUNCES
           and launches["hybrid"]["nearest_hit"] == 0,
           f"fb_agent hybrid: launches {launches['hybrid']}")
+    # The f32 guide's row kernel: GN_SITES launches a guided level.
+    for name, rkw in routes.items():
+        levels = rkw.get("guide_max_level", BOUNCES)
+        check(launches[name]["guide_norm"] == GN_SITES * levels,
+              f"fb_agent {name}: {launches[name]['guide_norm']} guide_norm "
+              f"launches, not {GN_SITES} a guided level of {levels}")
 
     # The same agent on the frame's draws through trace_path: the stepwise
     # route with the kernel sweep and with nearest_hit_plain as its sweep,
@@ -1530,6 +1556,155 @@ def fb_agent_phases(dev, card, scene, params):
     torch.cuda.empty_cache()
     emit({"phase": "fb_agent_800x600", **card, **big,
           "seconds": time.perf_counter() - t0})
+    return {name: v["guide_norm"] for name, v in launches.items()}
+
+
+def perturbed(module, seed):
+    """Every Dense bias and LayerNorm parameter of ``module`` moved off
+    flax's initial zeros and ones, so that a kernel that skipped a bias add
+    or a scale would not read equal."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, Dense):
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+            elif isinstance(m, LayerNorm):
+                m.scale.copy_(1.0 + 0.2 * torch.randn(m.scale.shape,
+                                                      generator=g))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+    return module
+
+
+def guide_norm_phase(dev, card, scene, params, frame_launches):
+    """guide_norm: the f32 guide's row kernel.  A seeded FBConfig() agent
+    with every bias and LayerNorm parameter perturbed guides one hybrid
+    level's observations; each of the call's sites (every kind of site at
+    every width the guide holds) is held bit for bit against the plain ops
+    on the same inputs, and the call fused against the module path.  Then
+    one [160,000, 512] LayerNorm + residual site (the first residual
+    block's second layer) against the plain ops, and its device time queued
+    against the byte bound.  ``frame_launches``: fb_agent's launches a
+    frame by route.  Returns the kernel's entry of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    agent = TrainedFBAgent(None, scene, small_light_indices(scene),
+                           params["camera_position"], config=FBConfig(),
+                           seed=SEED, device=dev)
+    perturbed(agent.encoder, SEED + 62)
+    perturbed(agent.backward, SEED + 63)
+    guide = agent.as_guide_fn()
+    check(guide.fused, "guide_norm: the FBConfig() f32 guide is not fused")
+    gen = torch.Generator(dev).manual_seed(SEED + 61)
+    jitter = torch.rand((SPP, A_H, A_W, 2), device=dev, generator=gen)
+    o, d = perspective_rays(A_W, A_H, fov=params["fov"],
+                            origin=params["camera_position"],
+                            sample_xy=jitter)
+    R = o.shape[0]
+    u = torch.rand((BOUNCES, R, 2), device=dev, generator=gen)
+    f = torch.rand((BOUNCES, R), device=dev, generator=gen)
+    seen = []
+
+    def recording(obs):
+        seen.append(obs.clone())
+        return guide(obs)
+
+    trace_path(scene, o.contiguous(), d, max_bounces=BOUNCES,
+               mirror_threshold=G_THRESHOLD, background=BG, uniforms=u,
+               fb_uniforms=f, fb_prob=G_FB_PROB, guide_fn=recording,
+               impl="hybrid")
+    obs = seen[1]
+    sites = []
+    kernel = fused_guide.guide_norm
+
+    def held(y, bias, ln=None, post=None):
+        want = cuda_norm.guide_norm_plain(y.clone(), bias, ln, post)
+        got = kernel(y, bias, ln, post)
+        residual = isinstance(post, torch.Tensor)
+        sites.append({
+            "kind": ("ln" if ln is not None else "bias",
+                     "residual" if residual else post, y.shape[1]),
+            "bit_equal": bool(torch.equal(got, want)),
+            "max_rel_gap": float(((got - want).abs()
+                                  / want.abs().clamp_min(1.0)).max())})
+        return got
+
+    before = cuda_norm.guide_norm.launches
+    fused_guide.guide_norm = held
+    try:
+        fused = guide(obs)
+    finally:
+        fused_guide.guide_norm = kernel
+    torch.cuda.synchronize()
+    launches = cuda_norm.guide_norm.launches - before
+    fused_ms = cuda_ms(lambda: guide(obs), 5)
+    calls = profiling.counters()["guide_module_calls"]
+    guide.fused = False
+    try:
+        modules = guide(obs)
+        modules_ms = cuda_ms(lambda: guide(obs), 5)
+    finally:
+        guide.fused = True
+    module_calls = profiling.counters()["guide_module_calls"] - calls
+    action_gap = float((fused - modules).abs().max())
+    g_bound = R * agent_guide_flops(agent.config) / PEAK_F32_FLOPS * 1e3
+    kinds = {tuple(s["kind"]) for s in sites}
+    sites_equal = all(s["bit_equal"] for s in sites)
+
+    block = agent.encoder.ResidualBlock_0
+    x = torch.randn((GN_ROWS, GN_WIDTH), device=dev, generator=gen)
+    with torch.inference_mode():
+        bias, ln = block.Dense_1.bias, block.LayerNorm_1
+        y = torch.matmul(x, block.Dense_1.kernel)
+        want = cuda_norm.guide_norm_plain(y.clone(), bias, ln, x)
+        before = cuda_norm.guide_norm.launches
+        got = cuda_norm.guide_norm(y.clone(), bias, ln, x)
+        torch.cuda.synchronize()
+        check(cuda_norm.guide_norm.launches == before + 1,
+              "guide_norm: not one launch a site")
+        gap = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        equal = float((got == want).float().mean())
+        bit_equal = bool(torch.equal(got, want))
+        ms = queued_ms(lambda: cuda_norm.guide_norm(y, bias, ln, x))
+        plain_ms = cuda_ms(lambda: cuda_norm.guide_norm_plain(y, bias, ln,
+                                                              x), 5)
+    bound_ms = GN_BYTES / PEAK_BYTES * 1e3
+    emit({"phase": "guide_norm", **card,
+          "agent": "FBConfig() seeded, biases and LayerNorm parameters "
+                   "perturbed",
+          "guide_rows": obs.shape[0], "guide_launches_a_call": launches,
+          "sites": [dict(s, kind=list(s["kind"])) for s in sites],
+          "sites_bit_equal_vs_plain": sites_equal,
+          "guide_fused_ms": fused_ms, "guide_modules_ms": modules_ms,
+          "guide_module_calls": module_calls,
+          "guide_flops_bound_ms": g_bound,
+          "guide_fused_bound_share": g_bound / fused_ms,
+          "guide_modules_bound_share": g_bound / modules_ms,
+          "max_abs_action_gap_fused_vs_modules": action_gap,
+          "actions_bit_equal": bool(torch.equal(fused, modules)),
+          "site": f"[{GN_ROWS}, {GN_WIDTH}] LayerNorm + residual",
+          "bit_equal_vs_plain": bit_equal, "max_rel_gap_vs_plain": gap,
+          "equal_fraction_vs_plain": equal,
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          "bound_bytes": GN_BYTES, "bound_share": bound_ms / ms,
+          "frame_launches": frame_launches,
+          "seconds": time.perf_counter() - t0})
+    check(launches == GN_SITES, f"guide_norm: {launches} launches a guide "
+          f"call, not {GN_SITES}")
+    check(kinds == GN_KINDS, f"guide_norm: the guide's sites "
+          f"{sorted(kinds, key=str)}, not {sorted(GN_KINDS, key=str)}")
+    check(sites_equal, f"guide_norm: the guide's sites vs plain: "
+          f"{[s for s in sites if not s['bit_equal']]}")
+    check(bit_equal, f"guide_norm: kernel vs plain: {equal} of the values "
+          f"equal, max rel gap {gap}")
+    check(module_calls == 6, f"guide_norm: {module_calls} module-path "
+          f"calls counted, not 6")
+    check(action_gap <= 2e-5, f"guide_norm: fused guide vs modules "
+          f"{action_gap}")
+    return {"name": "guide_norm", "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/guide_norm.cu",
+            "replaces": None, "launches": frame_launches,
+            "launches_timed": 1, "max_abs_err": gap, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "bound_bytes": GN_BYTES, "library_ms": None}
 
 
 def nan_equal(a, b):
@@ -4272,7 +4447,8 @@ def main():
 
     whitted_kernels = whitted_phases(dev, card)
     guided_kernels = guided_phases(dev, card, scene, params, libs)
-    fb_agent_phases(dev, card, scene, params)
+    norm_launches = fb_agent_phases(dev, card, scene, params)
+    norm_kernel = guide_norm_phase(dev, card, scene, params, norm_launches)
     train_dir = ROOT / "build" / "fb_train"
     shutil.rmtree(train_dir, ignore_errors=True)
     trainer, ckpt, walk_kernel = fb_train_phase(dev, card, train_dir)
@@ -4371,7 +4547,8 @@ def main():
             k["launches_rl"] = rl_routes[k["name"]]
     emit({"kernels": kernels + [walk_kernel, distill_kernel,
                                 output5_kernel] + rl_env_kernels
-          + [rl_render_kernel] + animate_kernels + [compact_kernel]})
+          + [rl_render_kernel] + animate_kernels + [compact_kernel]
+          + [norm_kernel]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

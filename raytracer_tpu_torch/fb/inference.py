@@ -27,9 +27,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import cuda_norm
 from ..core.device import resolve_device
 from ..scene.types import Scene
+from ..utils import profiling
 from ..utils.checkpoint import load_fb, networks_for
+from . import fused_guide
 from .config import FBConfig
 from .networks import initialise
 
@@ -40,7 +43,11 @@ class AgentGuide:
     backward model against the prototype, in ``dtype`` (f32, or bf16 on
     copies of the networks: JAX ``as_guide_fn(jnp.bfloat16)`` casts the
     parameters, the observation and the prototype).  ``obs`` must lie on
-    the networks' device."""
+    the networks' device.  On a card, an f32 guide at widths the kernel
+    takes (``fused``) runs ``fb/fused_guide.py``'s forward
+    (``csrc/guide_norm.cu`` after each product), whose library it loads
+    when it is built; any other call on a card counts
+    ``guide_module_calls``."""
 
     def __init__(self, encoder, backward, prototype: torch.Tensor,
                  z_dim: int, dtype=torch.float32):
@@ -52,12 +59,23 @@ class AgentGuide:
         self.prototype = prototype.to(dtype)
         self.z_dim = z_dim
         self.device = prototype.device
+        self.fused = (fused_guide.fits(encoder, backward)
+                      and self.device.type == "cuda"
+                      and dtype == torch.float32)
+        if self.fused:
+            cuda_norm.load()      # built now, not in the first guided call
 
     def __call__(self, obs: torch.Tensor) -> torch.Tensor:
         if obs.device != self.device:
             raise ValueError(f"observations on {obs.device}; the agent's "
                              f"networks are on {self.device}")
         with torch.inference_mode():
+            if self.fused:
+                return fused_guide.action_mean(
+                    self.encoder, self.backward, obs, self.prototype,
+                    self.z_dim)
+            if self.device.type == "cuda":
+                profiling.count("guide_module_calls")
             z = self.encoder(obs.to(self.dtype))[:, :self.z_dim]
             proto = self.prototype.expand(z.shape[0], -1)
             mean = self.backward.action_mean(self.backward.trunk(z, proto))

@@ -31,8 +31,11 @@ _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 # Counted where the work happens, on the host: ``host_reads``, the scene's
 # tensors read to host numpy on the frame path (each a device sync on a
-# card); ``guide_rows``, the rows passed to a guide called on the host.
-_COUNTS = {"host_reads": 0, "guide_rows": 0}
+# card); ``guide_rows``, the rows passed to a guide called on the host;
+# ``guide_module_calls``, full-agent guide calls on a card that ran
+# ``fb/networks.py``'s modules instead of ``fb/fused_guide.py`` (the bf16
+# guide, or widths the row kernel does not take).
+_COUNTS = {"host_reads": 0, "guide_rows": 0, "guide_module_calls": 0}
 
 
 class Timer:
@@ -110,17 +113,19 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of the process's counters: ``host_reads`` and
-    ``guide_rows`` (``count``), and each kernel's launches, all routes and
+    """A snapshot of the process's counters: ``host_reads``,
+    ``guide_rows`` and ``guide_module_calls`` (``count``), and each kernel's launches, all routes and
     by route (``launches.path_trace.<route>``).  The work between two
     snapshots is their difference."""
-    from ..core import cuda_intersect, cuda_level, cuda_path, cuda_whitted
+    from ..core import (cuda_intersect, cuda_level, cuda_norm, cuda_path,
+                        cuda_whitted)
     out = {"launches.path_trace": cuda_path.path_trace.launches}
     for route, n in cuda_path.path_trace.route_launches.items():
         out[f"launches.path_trace.{route}"] = n
     out["launches.path_level"] = cuda_level.path_level.launches
     out["launches.nearest_hit"] = cuda_intersect.nearest_hit.launches
     out["launches.whitted_trace"] = cuda_whitted.whitted_trace.launches
+    out["launches.guide_norm"] = cuda_norm.guide_norm.launches
     out.update(_COUNTS)
     return out
 

@@ -7,7 +7,6 @@ for any device, so the tests drive whole runs on the CPU at small sizes
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -17,66 +16,17 @@ from typing import List, Optional
 
 import torch
 
-from . import check, inputs, manifest
-from .reference import plain
+from . import check, manifest
+from .record import Run
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "raytracer_tpu")
 
 
-@dataclasses.dataclass
-class Run:
-    """What the metric readers read."""
-    config: dict
-    mix: dict
-    diffuse: bool
-    samples_per_frame: int
-    setup_s: float
-    window_start: float = 0.0
-    frames: List[tuple] = dataclasses.field(default_factory=list)
-    trace: Optional[object] = None         # tracing.TraceRecord
-    guide_ms: Optional[List[float]] = None
-    work: Optional[dict] = None
-
-
-class Session:
-    """The program set up for a cell, with the harness's draws."""
-
-    def __init__(self, cell: dict, seed: int, device, trace: bool,
-                 tracer=None):
-        from .program import Program
-        self.cell, self.seed, self.device = cell, seed, torch.device(device)
-        cfg, mix = cell["config_data"], cell["mix"]
-        rows = plain.scene_rows(cfg["scene"]["spheres"])
-        self.diffuse = not plain.no_diffuse_possible(rows,
-                                                     mix["mirror_threshold"])
-        self.params = None
-        if mix["guided"] and cfg["guide"]["kind"] == "fb_agent":
-            self.params = inputs.agent_params(seed, cfg["guide"], self.device)
-        timed = trace and self.device.type == "cuda"
-        self.program = Program(cell, seed, self.device, self.params,
-                               timed_guide=timed,
-                               span=tracer.span if tracer else None)
-        self.guide_ms: Optional[List[float]] = [] if (
-            self.program.timed is not None) else None
-
-    def planes(self, index: int) -> dict:
-        mix = self.cell["mix"]
-        return inputs.planes(self.seed, index, width=mix["width"],
-                             height=mix["height"], spp=mix["spp"],
-                             max_bounces=self.cell["config_data"][
-                                 "max_bounces"], diffuse=self.diffuse,
-                             guided=mix["guided"], device=self.device)
-
-    def render(self, planes: dict):
-        return self.program.render(planes)
-
-    def frame_done(self) -> None:
-        if self.program.timed is not None:
-            self.guide_ms.append(self.program.timed.take())
-
-    def close(self) -> None:
-        self.program.close()
-        self.program = None
+def Session(cell: dict, seed: int, device, trace: bool, tracer=None):
+    """The program set up for a cell by its kind (the configuration's
+    ``program``), with the harness's draws."""
+    return manifest.program(cell["config_data"]["program"]).Session(
+        cell, seed, device, trace, tracer)
 
 
 def forbidden_modules() -> List[str]:
@@ -109,19 +59,19 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
     torch.backends.cuda.matmul.allow_tf32 = cfg["precision"]["tf32"]
     torch.backends.cudnn.allow_tf32 = cfg["precision"]["tf32"]
     traffic = manifest.traffic(mix["kind"])
+    kind = manifest.program(cfg["program"])
     tracer = Tracer(seconds) if trace and cuda else None
     phases = {"imports": time.perf_counter() - t_start}
     if cuda:
         torch.cuda.init()
         torch.empty(1, device=dev)
     phases["device"] = time.perf_counter() - t_start
-    session = Session(cell, seed, dev, trace, tracer)
+    session = kind.Session(cell, seed, dev, trace, tracer)
     phases["program"] = time.perf_counter() - t_start
     traffic.warm_up(session)
     if tracer is not None:
         Tracer.warm_up(lambda: session.render(session.planes(-3)))
-    if session.guide_ms is not None:
-        session.program.timed.take()
+    session.setup_done()
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -135,14 +85,13 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
     forbidden = forbidden_modules()
     if forbidden:
         raise ForbiddenModules(forbidden)
-    guide_ms, params, diffuse = (session.guide_ms, session.params,
-                                 session.diffuse)
+    fields, inputs = session.run_fields(), session.inputs
     session.close()
     del session
     if cuda:
         torch.cuda.empty_cache()
 
-    ref = check.Reference(cell, seed, dev, params, count_work=trace)
+    ref = kind.Reference(cell, seed, dev, inputs, count_work=trace)
     pairs = []
     for index, image, counters in sorted(keep.items, key=lambda t: t[0]):
         ref_image, ref_counters = ref.frame(index)
@@ -151,11 +100,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, *,
     limits = cell["check"]["limits"]
     correct = check.judge(values, limits)
 
-    run = Run(cfg, mix, diffuse=diffuse,
-              samples_per_frame=mix["width"] * mix["height"] * mix["spp"],
+    run = Run(cfg, mix, samples_per_frame=kind.samples_per_frame(cell),
               setup_s=setup_s, window_start=start, frames=frames,
               trace=tracer.record() if tracer else None,
-              guide_ms=guide_ms, work=ref.work_per_frame())
+              work=ref.work_per_frame(), **fields)
     section = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in manifest.metrics_for(bench, name, section):

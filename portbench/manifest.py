@@ -2,11 +2,14 @@
 
 A cell ``<name>`` is ``workloads/<name>.json`` (its configuration, traffic
 mix, chips, why, and the limits its outputs are held to); its
-configuration is ``configs/<config>.json``, its traffic mix
-``mixes/<traffic>.json`` (the parameters of one traffic kind), the kind's
-loop ``traffic/<kind>.py``, and each metric's reader ``metrics/<metric>.py``.
-Everything is found by name: a cell, a mix or a metric is added by adding
-files, and ``BENCHMARK.json`` lists what runs.
+configuration is ``configs/<config>.json``, which names the program kind
+that runs it (``"program"``: ``programs/<program>.py``, the system under
+test set up for a cell with its plain reference and its unit count); its
+traffic mix ``mixes/<traffic>.json`` (the parameters of one traffic kind),
+the kind's loop ``traffic/<kind>.py``, and each metric's reader
+``metrics/<metric>.py``.  Everything is found by name: a cell, a mix, a
+metric or a program kind is added by adding files, and ``BENCHMARK.json``
+lists what runs.
 """
 from __future__ import annotations
 
@@ -39,7 +42,10 @@ def cell(name: str, base: Path = HERE) -> dict:
     if not path.exists():
         raise FileNotFoundError(f"no cell {name!r} ({path})")
     c = load_json(path)
-    c["config_data"] = load_json(base / "configs" / f"{c['config']}.json")
+    config = base / "configs" / f"{c['config']}.json"
+    c["config_data"] = load_json(config)
+    if "program" not in c["config_data"]:
+        raise KeyError(f"{config} names no program kind (\"program\")")
     c["mix"] = load_json(base / "mixes" / f"{c['traffic']}.json")
     return c
 
@@ -65,3 +71,12 @@ def traffic(kind: str):
     if not NAME.match(kind):
         raise ValueError(f"not a traffic kind: {kind!r}")
     return importlib.import_module(f"portbench.traffic.{kind}")
+
+
+def program(kind: str):
+    """The program kind's module (``programs/<kind>.py``): ``Session``,
+    ``Reference`` and ``samples_per_frame``, as ``programs/__init__.py``
+    sets out."""
+    if not NAME.match(kind):
+        raise ValueError(f"not a program kind: {kind!r}")
+    return importlib.import_module(f"portbench.programs.{kind}")

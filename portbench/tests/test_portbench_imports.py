@@ -1,6 +1,8 @@
-"""Nothing of the benchmark imports JAX or the JAX package, and its
-reference imports nothing of the program.  Top-level module names are
-compared whole: ``raytracer_tpu_torch`` is not ``raytracer_tpu``."""
+"""Nothing of the benchmark imports JAX or the JAX package, its reference
+imports nothing of the program, and of the harness's sources only the
+program kinds (``programs/``) import the program, inside their functions.
+Top-level module names are compared whole: ``raytracer_tpu_torch`` is not
+``raytracer_tpu``."""
 import ast
 from pathlib import Path
 
@@ -14,7 +16,10 @@ SOURCES = sorted(BENCH.rglob("*.py"))
 
 def imported_tops(path: Path):
     """The top-level names every import in ``path`` names."""
-    tree = ast.parse(path.read_text(), filename=str(path))
+    yield from tops_of(ast.parse(path.read_text(), filename=str(path)))
+
+
+def tops_of(tree: ast.AST):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -47,6 +52,30 @@ def test_reference_imports_no_program(path):
     tops = set(imported_tops(path))
     assert PROGRAM not in tops
     assert not tops & FORBIDDEN
+
+
+HARNESS = [p for p in SOURCES
+           if p.relative_to(BENCH).parts[0] not in ("programs", "tests")]
+
+
+@pytest.mark.parametrize("path", HARNESS,
+                         ids=[p.relative_to(BENCH).as_posix()
+                              for p in HARNESS])
+def test_only_program_kinds_import_the_program(path):
+    assert PROGRAM not in set(imported_tops(path))
+
+
+@pytest.mark.parametrize("path", sorted(
+    p for p in (BENCH / "programs").glob("*.py") if p.name != "__init__.py"),
+    ids=lambda p: p.name)
+def test_program_kinds_import_the_program_inside_functions(path):
+    """Nothing at a kind's top level imports the program: the benchmark's
+    tests import the kinds where the program is absent."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert PROGRAM not in set(tops_of(ast.Module(top, [])))
+    assert PROGRAM in set(tops_of(tree))
 
 
 def test_top_names_compared_whole(tmp_path):

@@ -4,6 +4,7 @@ names is there, and a cell added as files is found without an edit."""
 import json
 import re
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 from typing import Dict, List
@@ -127,6 +128,9 @@ def test_cell_files_agree_with_benchmark(w):
     assert cell["config_data"]["reduced"] == cfg["reduced"]
     assert cell["config_data"]["source"] == cfg["source"]
     assert manifest.traffic(cell["mix"]["kind"])
+    kind = manifest.program(cell["config_data"]["program"])
+    assert all(callable(getattr(kind, name)) for name in
+               ("Session", "Reference", "samples_per_frame"))
     for k in ("pixels_off", "counters_off"):
         assert cell["check"]["limits"][k] >= 0
 
@@ -183,6 +187,156 @@ def test_added_cell_found_without_edits(tmp_path):
         (copy / "BENCHMARK.json").read_text()))
 
 
+TOY_KIND = '''"""A toy program kind: a grid of camera rays shaded by one light
+drawn from (seed, frame index), in torch; its reference in NumPy."""
+import numpy as np
+import torch
+
+from portbench.inputs import frame_seed
+
+COLOUR = (1.0, 0.75, 0.5)
+
+
+def samples_per_frame(cell):
+    return cell["mix"]["width"] * cell["mix"]["height"]
+
+
+def light(seed, index):
+    g = torch.Generator().manual_seed(frame_seed(seed, index))
+    v = torch.rand(3, generator=g) - torch.tensor([0.5, 0.5, -0.5])
+    return v / v.norm()
+
+
+def shade(d, to_light):
+    lam = (d * to_light).sum(-1).clamp_min(0.0)
+    return torch.round(255.0 * lam[..., None] * torch.tensor(COLOUR))
+
+
+class Session:
+    def __init__(self, cell, seed, device, trace, tracer=None):
+        w, h = cell["mix"]["width"], cell["mix"]["height"]
+        y, x = torch.meshgrid(torch.linspace(-1, 1, h),
+                              torch.linspace(-1, 1, w), indexing="ij")
+        d = torch.stack([x, y, torch.ones_like(x)], -1)
+        self.program = d / d.norm(dim=-1, keepdim=True)
+        self.seed, self.inputs = seed, None
+
+    def planes(self, index):
+        return {"light": light(self.seed, index)}
+
+    def render(self, planes):
+        return (shade(self.program, planes["light"]),
+                torch.zeros(0, dtype=torch.int64))
+
+    def setup_done(self):
+        pass
+
+    def frame_done(self):
+        pass
+
+    def run_fields(self):
+        return {}
+
+    def close(self):
+        self.program = None
+
+
+class Reference:
+    def __init__(self, cell, seed, device, inputs, precision=None,
+                 count_work=False):
+        self.cell, self.seed = cell, seed
+
+    def frame(self, index):
+        w, h = self.cell["mix"]["width"], self.cell["mix"]["height"]
+        to_light = light(self.seed, index).numpy().astype(np.float64)
+        x, y = np.meshgrid(np.linspace(-1, 1, w), np.linspace(-1, 1, h))
+        d = np.stack([x, y, np.ones_like(x)], -1)
+        d /= np.sqrt((d * d).sum(-1, keepdims=True))
+        lam = np.maximum((d * to_light).sum(-1), 0.0)
+        rgb = np.round(255.0 * lam[..., None] * np.array(COLOUR))
+        return (torch.from_numpy(rgb.astype(np.float32)),
+                torch.zeros(0, dtype=torch.int64))
+
+    def work_per_frame(self):
+        return None
+'''
+
+TOY_RUN = '''import json, sys, time
+from portbench import harness, manifest
+from portbench.programs import toy_grid
+bench, cell = manifest.benchmark(), manifest.cell("toy_grid_16x12")
+out = []
+for broken in (False, True):
+    if broken:
+        real = toy_grid.shade
+        toy_grid.shade = lambda d, to_light: real(d, to_light.flip(0))
+    r = harness.run_cell(cell, 2 ** 31 + 5, 0.05, False, device="cpu",
+                         t_start=time.perf_counter(), bench=bench,
+                         min_frames=3)
+    out.append({k: r[k] for k in ("correct", "metrics", "check")})
+print(json.dumps(out))
+'''
+
+
+def test_added_program_kind_runs_without_edits(tmp_path):
+    """A copy of the benchmark with one more program kind, added as a
+    module, a configuration naming it, a mix and a workload only: a whole
+    run on the CPU finds it by name, is correct on its counter-less
+    frames, and is not correct with its timed path broken."""
+    copy = tmp_path / "repo"
+    shutil.copytree(ROOT / "portbench", copy / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    add = {"programs/toy_grid.py": TOY_KIND,
+           "configs/toy_grid.json": json.dumps({
+               "name": "toy_grid", "program": "toy_grid",
+               "source": "a toy: one light over a grid of camera rays",
+               "precision": {"tf32": False}, "reduced": []}),
+           "mixes/grid_16x12.json": json.dumps({
+               "kind": "frames_closed_loop", "width": 16, "height": 12}),
+           "workloads/toy_grid_16x12.json": json.dumps({
+               "name": "toy_grid_16x12", "config": "toy_grid",
+               "traffic": "grid_16x12", "chips": 1,
+               "why": "a toy kind added as files",
+               "check": {"frames": 2, "limits": {"pixels_off": 0.02,
+                                                 "counters_off": 0.0}}})}
+    for rel, text in add.items():
+        (copy / "portbench" / rel).write_text(text)
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "toy_grid", "source": "a toy",
+                             "file": "portbench/configs/toy_grid.json",
+                             "reduced": [], "why": "a toy kind"})
+    bench["workloads"].append({k: json.loads(add[
+        "workloads/toy_grid_16x12.json"])[k] for k in
+        ("name", "config", "traffic", "chips", "why")})
+    (copy / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert not problems(bench)
+    for p in (ROOT / "portbench").rglob("*"):
+        if p.is_file() and "__pycache__" not in p.parts:
+            rel = p.relative_to(ROOT / "portbench")
+            assert (copy / "portbench" / rel).read_bytes() == p.read_bytes()
+    proc = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=copy,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    sound, broken = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert sound["correct"], sound["check"]
+    assert sound["metrics"]["samples_per_s"]["value"] > 0
+    assert sound["check"]["counters_off"]["value"] == 0
+    assert not broken["correct"], broken["check"]
+    assert broken["check"]["pixels_off"]["value"] > 0.5
+
+
+def test_config_without_a_program_kind_is_refused(tmp_path):
+    base = tmp_path / "portbench"
+    shutil.copytree(ROOT / "portbench", base,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = base / "configs" / "chandelier_student.json"
+    cfg = json.loads(path.read_text())
+    del cfg["program"]
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(KeyError, match="program"):
+        manifest.cell("student_traditional_800x600", base=base)
+
+
 def test_run_without_a_card_prints_no_result(capsys, monkeypatch):
     import torch
     from portbench import harness
@@ -197,7 +351,6 @@ def test_run_without_a_card_prints_no_result(capsys, monkeypatch):
 def test_run_needs_the_program(tmp_path):
     """In a directory with only BENCHMARK.json and the benchmark's files,
     the command fails and prints no result."""
-    import subprocess
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")

@@ -4,7 +4,8 @@ the port's ``tools/level_edges.py::level_work`` on a seeded case."""
 import pytest
 import torch
 
-from portbench import check, inputs, manifest
+from portbench import inputs, manifest
+from portbench.programs.render_path import Program, Reference
 from portbench.reference import plain, work
 
 CELLS = [w["name"] for w in manifest.benchmark()["workloads"]]
@@ -26,7 +27,6 @@ def tiny(name, width=12, height=9, spp=2):
 
 
 def program_frame(cell, planes, impl, params):
-    from portbench.program import Program
     prog = Program(cell, SEED, "cpu", params)
     prog.kw["impl"] = impl
     return prog.render(planes)
@@ -40,7 +40,7 @@ def test_reference_equals_the_port(name):
     if mix["guided"] and cell["config_data"]["guide"]["kind"] == "fb_agent":
         params = inputs.agent_params(SEED, cell["config_data"]["guide"],
                                      "cpu")
-    ref = check.Reference(cell, SEED, "cpu", params)
+    ref = Reference(cell, SEED, "cpu", params)
     impls = {mix["impl"]}
     if mix.get("guide_max_level") is None:
         impls.add("plain")
@@ -57,7 +57,7 @@ def test_reference_equals_the_port(name):
 
 def test_counters_are_the_frame_totals():
     cell = tiny("student_guided_800x600")
-    ref = check.Reference(cell, SEED, "cpu")
+    ref = Reference(cell, SEED, "cpu")
     _, counters = ref.frame(0)
     mix = cell["mix"]
     rays = mix["width"] * mix["height"] * mix["spp"]
@@ -68,14 +68,14 @@ def test_counters_are_the_frame_totals():
 
 def test_planes_repeat_from_seed_and_index():
     cell = tiny("fb_agent_hybrid_200x100")
-    ref = check.Reference(cell, SEED, "cpu",
-                          inputs.agent_params(SEED, cell["config_data"][
-                              "guide"], "cpu"))
+    ref = Reference(cell, SEED, "cpu",
+                    inputs.agent_params(SEED, cell["config_data"]["guide"],
+                                        "cpu"))
     a, b, c = ref.planes(3), ref.planes(3), ref.planes(4)
     assert set(a) == {"jitter", "uniforms", "fb_uniforms"}
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["jitter"], c["jitter"])
-    trad = check.Reference(tiny("student_traditional_800x600"), SEED, "cpu")
+    trad = Reference(tiny("student_traditional_800x600"), SEED, "cpu")
     assert set(trad.planes(0)) == {"jitter"}
 
 

@@ -8,9 +8,11 @@ For each seed, in one process: the program's run as ``run.py`` makes it
 frames) and the numbers the comparison with the reference gives (the
 lower reading).  For each control seed, on the same frames: the control,
 the reference at the precision below the configuration's put in the
-program's place (the upper reading), and where the configuration's
-products are float32 with TF32 off, the program itself with TF32 on.
-One JSON line a seed.  The benchmark's own runs do not run this.
+program's place (the upper reading), and where the program's products
+are float32 with TF32 off, the program itself with TF32 on.  The
+reference and the control are the cell's program kind's
+(``programs/<kind>.py``).  One JSON line a seed.  The benchmark's own
+runs do not run this.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 import torch  # noqa: E402
 
 from portbench import check, manifest  # noqa: E402
-from portbench.harness import Session  # noqa: E402
 
 
 def seeds(text: str):
@@ -44,7 +45,8 @@ def readings(cell: dict, seed: int, seconds: float, control: bool,
              device="cuda") -> dict:
     t0 = time.perf_counter()
     traffic = manifest.traffic(cell["mix"]["kind"])
-    session = Session(cell, seed, device, trace=False)
+    kind = manifest.program(cell["config_data"]["program"])
+    session = kind.Session(cell, seed, device, trace=False)
     traffic.warm_up(session)
     keep = traffic.Reservoir(cell["check"]["frames"], seed)
     _, frames = traffic.window(session, seconds, keep)
@@ -52,21 +54,19 @@ def readings(cell: dict, seed: int, seconds: float, control: bool,
     out = {"seed": seed, "frames": len(frames),
            "compared": [i for i, _, _ in kept]}
     tf32_outputs = None
-    if (control and device != "cpu" and cell["mix"]["guided"]
-            and cell["config_data"]["precision"]["guide"] == "float32"):
+    if control and device != "cpu" and kind.has_tf32_path(cell):
         torch.backends.cuda.matmul.allow_tf32 = True
         tf32_outputs = [session.render(session.planes(i)) for i, _, _ in kept]
         torch.backends.cuda.matmul.allow_tf32 = False
-    params = session.params
+    inputs = session.inputs
     session.close()
-    ref = check.Reference(cell, seed, device, params)
+    ref = kind.Reference(cell, seed, device, inputs)
     refs = [ref.frame(i) for i, _, _ in kept]
     out["program"] = check.numbers(
         [(img, cnt, *r) for (_, img, cnt), r in zip(kept, refs)])
     out["counters"] = [r[1].tolist() for r in refs]
     if control:
-        ctl = check.Reference(cell, seed, device, params,
-                              precision="control")
+        ctl = kind.Reference(cell, seed, device, inputs, precision="control")
         out["control"] = check.numbers(
             [(*ctl.frame(i), *r) for (i, _, _), r in zip(kept, refs)])
         if tf32_outputs is not None:

@@ -52,19 +52,10 @@ METRICS = [
 ]
 
 
-def program_counters():
-    """The program's counters, or None for a program that keeps none."""
-    try:
-        from raytracer_tpu_torch.utils.profiling import counters
-    except ImportError:
-        return None
-    return counters()
-
-
 class Tracer(spans.SpanTracer):
     """The harness's tracer for these runs: ``main`` puts it in
-    ``tracing.Tracer``'s place, where ``run_cell`` takes it from."""
-    counters = staticmethod(program_counters)
+    ``tracing.Tracer``'s place, where ``run_cell`` takes it from, with the
+    cell's program kind's ``counters``."""
     last = None          # (the last run's tracer, its record)
 
     def record(self):
@@ -131,6 +122,8 @@ def main(argv=None) -> int:
     have = {m["name"] for m in bench["per_layer"]}
     bench["per_layer"] += [m for m in METRICS if m["name"] not in have]
     cell = manifest.cell(args.workload)
+    Tracer.counters = staticmethod(
+        manifest.program(cell["config_data"]["program"]).counters)
     tracing.Tracer = Tracer
     out = open(args.out, "a") if args.out else None
     try:

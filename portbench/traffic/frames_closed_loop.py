@@ -1,10 +1,10 @@
 """One client rendering frames one after another, each after the last has
 reached the host: how the comparison harness, the CLI and the turntables
-call ``render_path``.
+call the renderers.
 
-A frame is timed from the start of its draws (its planes, made on the
-device from ``(seed, frame index)``) to its image and six counters on the
-host.  Frames start while the window is open; the window's time runs to
+A frame is timed from the start of its draws (its planes, made from
+``(seed, frame index)`` by the cell's program kind) to its image and
+counters on the host.  Frames start while the window is open; the window's time runs to
 the end of its last frame.  A seeded reservoir keeps ``keep`` of the
 window's frames, uniformly, for the comparison with the reference.
 """

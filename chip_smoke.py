@@ -10,7 +10,8 @@ just after:
   bounces, mirror_threshold=0.0, through ``render_path``;
 * the Whitted tracer: planets2 at 2001x2001, 10 bounces, and marbles4 at
   801x801, 8 bounces, through ``render_whitted`` (the whole-trace Whitted
-  kernel, and the nearest-hit kernel for the shadow sweeps);
+  kernel, and the shading kernel with its shadow sweeps inside, one launch
+  a frame; phase whitted_shade times it on planets2's termini);
 * the guided path tracer: the chandelier frame at 800x600, 8 spp, 8
   bounces, mirror_threshold=0.9, fb_prob=1.0, guided by the shipped
   distilled student (22->128->128->2, bf16), through ``render_path`` with
@@ -54,15 +55,15 @@ just after:
 * the RL track at the shipped policies' configuration (the JAX CLI's
   rl-pipeline env: training_scene_complete at 400x300, fov 75, 8 bounces,
   2,048 episodes): the env through its kernel route (the Whitted kernel at
-  reset, the nearest-hit kernel a level of each step and in its shadow
-  sweeps) against its plain route (phase rl_env); the shipped PPO and SAC
+  reset, the nearest-hit kernel a level of each step, the shading kernel)
+  against its plain route (phase rl_env); the shipped PPO and SAC
   through evaluate_policy and compare_rl_vs_random (rl_eval); PPO
   iterations at the shipped config and SAC updates on the card's ring
   buffer, the first updates held against float64 (rl_train); render_guided
   at 400x300@1spp, 5 bounces, three Whitted launches a bounce (rl_render).
 * the frame-serving extras: README's planets2 turntable (24 frames,
-  400x300, render_whitted_frames: the Whitted kernel and the shadow
-  sweeps' nearest-hit launches a frame; animate_whitted); the guided
+  400x300, render_whitted_frames: the Whitted kernel and the shading
+  kernel a frame; animate_whitted); the guided
   chandelier turntable (12 frames, 200x100@4spp/8, the registry's bf16
   student in the guided path kernel), the same unguided, and
   cornell_box:1007 at 160x120@4/8 with its student (animate_path);
@@ -133,7 +134,8 @@ from raytracer_tpu_torch.compare.workbench import (compare_rl_vs_random,
                                                    load_policy,
                                                    random_actions)
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_norm,
-                                      cuda_path, cuda_whitted, native, vec)
+                                      cuda_path, cuda_shade, cuda_whitted,
+                                      native, vec)
 from raytracer_tpu_torch.env.raytracer_env import RayTracerEnv
 from raytracer_tpu_torch.env.scenes import (dynamic_scene,
                                             training_scene_complete)
@@ -183,7 +185,7 @@ GOLDEN = ROOT / "showcase" / "parity_fullres" / "chandelier_800x600_ref.npy"
 WHITTED_GOLDEN = (ROOT / "showcase" / "parity_fullres" /
                   "true_original_601_ref.npy")
 SOURCES = ("path_trace", "path_guided", "whitted_trace", "nearest_hit",
-           "path_level", "guide_norm")
+           "path_level", "guide_norm", "whitted_shade")
 SEED = 0
 W, H, SPP, BOUNCES = 800, 600, 8, 8
 BG = (2.0, 2.0, 5.0)
@@ -238,6 +240,21 @@ W_OPS_WALK_REFLECT = 82
 W_OPS_PER_RAY = 10
 W_BYTES_IN, W_BYTES_SUPPRESS, W_BYTES_OUT = 24, 4, 1 + 4 + 4 + 12 + 12 + 4 + 4
 NH_BYTES_OUT = 4 + 4 + 1          # t, idx, found
+# f32 operations of csrc/whitted_shade.cu, counted from its code, each IEEE
+# square root or divide as one and acosf as 12 (its reduction and
+# polynomial): a hit terminus's emission, |n| and rounding; a global light's
+# dot, norm, cosine, clamp, acos, falloff, strength and sum; a point light's
+# vector, id test and sum at every hit terminus; a swept shadow ray's norm,
+# clamp, three divides, glass rule and terminus test, its sweep counted as
+# the nearest-hit kernel's (OPS_SPHERE*); a lit one's dot, cosine, clamp,
+# acos, falloff and strength, and the distance divide where func is 0.
+# Bytes: hit in and RGB out a terminus; idx, point and normal in a hit.
+S_OPS_TERMINUS = 21
+S_OPS_GLOBAL = 37
+S_OPS_POINT = 10
+S_OPS_SWEPT = 13
+S_OPS_LIT = 25
+S_BYTES_RAY, S_BYTES_HIT = 1 + 12, 4 + 12 + 12
 # nearest_hit: seeded ray sets on the edges of the sweep's rewrites
 # (raytracer_tpu_torch/tools/sweep_edges.py), rays a set; the seed of the
 # stepwise level's camera rays (case b).
@@ -524,12 +541,91 @@ def reset_counts():
     cuda_intersect.nearest_hit.launches = 0
     cuda_level.path_level.launches = 0
     cuda_norm.guide_norm.launches = 0
+    cuda_shade.whitted_shade.launches = 0
 
 
 def read_counts():
     return {"path_trace": cuda_path.path_trace.launches,
             "whitted_trace": cuda_whitted.whitted_trace.launches,
-            "nearest_hit": cuda_intersect.nearest_hit.launches}
+            "nearest_hit": cuda_intersect.nearest_hit.launches,
+            "whitted_shade": cuda_shade.whitted_shade.launches}
+
+
+def shade_work(scene, gl, pl, res, table):
+    """The work of csrc/whitted_shade.cu on these termini: ``(f32
+    operations, bytes, counts)``, the shadow rays' sweeps counted on their
+    data (``cuda_intersect.sweep_work``) and the lit terms from the plain
+    sweep."""
+    hit = res.hit
+    hits = int(hit.sum())
+    self_id = table.ids[res.idx]
+    counts = {"termini": hit.shape[0], "hits": hits, "swept": 0, "lit": 0,
+              "lit_func0": 0}
+    sweep = {}
+    px, py, pz = res.point.unbind(1)
+    for k, (lid, func) in enumerate(zip(pl.id.tolist(), pl.func.tolist())):
+        active = hit & (self_id != lid)
+        dirs = torch.stack(vec.normalise_safe_c(
+            pl.position[k, 0] - px, pl.position[k, 1] - py,
+            pl.position[k, 2] - pz), 1)
+        add_work(sweep, cuda_intersect.sweep_work(res.point, dirs, self_id,
+                                                  table, active=active))
+        _, idx, found = cuda_intersect.nearest_hit_plain(res.point, dirs,
+                                                         self_id, table)
+        glass = (scene.transparent[idx] == 1.0) & (scene.reflective[idx]
+                                                   != 1.0)
+        n_lit = int((active & found & ~glass & (table.ids[idx] == lid))
+                    .sum())
+        counts["swept"] += int(active.sum())
+        counts["lit"] += n_lit
+        counts["lit_func0"] += n_lit if func == 0 else 0
+    ops = (hits * (S_OPS_TERMINUS + S_OPS_GLOBAL * gl.count
+                   + S_OPS_POINT * pl.count)
+           + S_OPS_SWEPT * counts["swept"]
+           + (sweep_ops(sweep)[0] if sweep else 0)
+           + S_OPS_LIT * counts["lit"] + counts["lit_func0"])
+    nbytes = S_BYTES_RAY * counts["termini"] + S_BYTES_HIT * hits
+    return ops, nbytes, {**counts, **sweep}
+
+
+def bits_equal(a, b):
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def shade_entry(name, calls):
+    """A ``kernels`` entry for the shading-kernel launches ``calls`` (as
+    ``recorded_launches`` returns them), replayed: each output against
+    the plain shading on the same arguments bit for bit, device ms queued
+    behind a spin kernel, the plain version's ms, the bound from the work
+    on these termini."""
+    def replay(fn=None):
+        for args, kw, _ in calls:
+            (fn or cuda_shade.whitted_shade)(*args, **kw)
+
+    equal = all(bits_equal(out, cuda_shade.whitted_shade_plain(*args, **kw))
+                for args, kw, out in calls)
+    dev_ms = queued_ms(replay)
+    plain_ms = cuda_ms(lambda: replay(cuda_shade.whitted_shade_plain), 2)
+    ops = nbytes = 0
+    work = {}
+    for (scene, gl, pl, res, _, _, table), kw, _ in calls:
+        o, b, w = shade_work(scene, gl, pl, res, table
+                             or cuda_intersect.sphere_table(scene))
+        ops, nbytes = ops + o, nbytes + b
+        add_work(work, w)
+    b_ms, b_by = bound(ops, nbytes)
+    return {"name": name, "route": "cuda",
+            "source": "raytracer_tpu_torch/csrc/whitted_shade.cu",
+            "replaces": None,
+            "replaces_note": "no pallas_call: raytracer_tpu/trace/shade.py::"
+                             "terminal_rgb (plain jnp) and its "
+                             "nearest_hit_pallas shadow sweeps",
+            "launches_timed": len(calls), "bit_equal": equal,
+            "max_abs_err": 0.0 if equal else None, "ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / dev_ms if dev_ms > 0 else None,
+            "bound_ops": ops, "bound_bytes": nbytes, "work": work,
+            "library_ms": None}
 
 
 def notebook_frame(name, multiple, dev):
@@ -567,7 +663,8 @@ def compare_images(a, b):
 
 
 def whitted_phases(dev, card):
-    """The Whitted path's phases; returns its two ``kernels`` entries."""
+    """The Whitted path's phases; returns its two ``kernels`` entries and
+    the shading kernel's."""
     # whitted_main: planets2 2001x2001@10 and marbles4 801x801@8 through
     # render_whitted, kernel then plain.
     main = {}
@@ -581,8 +678,9 @@ def whitted_phases(dev, card):
         launches = read_counts()
         check(launches["whitted_trace"] >= 1,
               f"{name}: render_whitted launched no whitted_trace kernel")
-        check(launches["nearest_hit"] >= pl.count >= 1,
-              f"{name}: the shadow sweeps launched no nearest_hit kernel")
+        check(launches["whitted_shade"] == 1 and launches["nearest_hit"] == 0,
+              f"{name}: the shading is not one whitted_shade launch with "
+              f"its sweeps inside: {launches}")
         img_p = render_whitted(scene, gl, pl, o, d, h, w, impl="plain", **kw)
         torch.cuda.synchronize()
         check(tuple(img_k.shape) == (h, w, 3), f"image shape {img_k.shape}")
@@ -784,7 +882,29 @@ def whitted_phases(dev, card):
           "library_note": "no single PyTorch call computes either function",
           "seconds": time.perf_counter() - t0})
 
-    return [
+    # whitted_shade: the frame's one shading launch, recorded and replayed:
+    # bit for bit against terminal_rgb(impl="plain") on its termini, its
+    # device time queued against its bound from the work on them.
+    t0 = time.perf_counter()
+    calls = recorded_launches(cuda_shade, "whitted_shade", lambda: (
+        render_whitted(scene, m["gl"], m["pl"], o, d, m["h"], m["w"],
+                       impl="kernel", **m["kw"])))
+    shade = shade_entry("whitted_shade", calls)
+    shade["launches"] = m["launches"]["whitted_shade"]
+    emit({"phase": "whitted_shade", **card,
+          "frame": f"planets2 {m['w']}x{m['h']}/{mb}", "termini": R,
+          "launches_per_frame": m["launches"],
+          **{k: shade[k] for k in ("bit_equal", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "bound_share", "bound_ops",
+                                   "bound_bytes", "work")},
+          "queued_ms": shade["ms"], "library_ms": None,
+          "library_note": "no single PyTorch call computes this function",
+          "seconds": time.perf_counter() - t0})
+    check(len(calls) == 1 and shade["bit_equal"],
+          f"whitted_shade: {len(calls)} launches, bit equal "
+          f"{shade['bit_equal']}")
+
+    return shade, [
         {"name": "whitted_trace", "route": "cuda",
          "source": "raytracer_tpu_torch/csrc/whitted_trace.cu",
          "replaces": "raytracer_tpu/core/pallas_whitted.py:110",
@@ -2229,7 +2349,8 @@ def launch_counts():
     return {"path_trace": route_counts(),
             "path_level": cuda_level.path_level.launches,
             "nearest_hit": cuda_intersect.nearest_hit.launches,
-            "whitted_trace": cuda_whitted.whitted_trace.launches}
+            "whitted_trace": cuda_whitted.whitted_trace.launches,
+            "whitted_shade": cuda_shade.whitted_shade.launches}
 
 
 def add_launches(total, counts):
@@ -2700,16 +2821,10 @@ def whitted_vs_plain(calls):
 
 
 def nearest_hit_calls(fn):
-    """``fn()`` with every nearest-hit launch recorded, from the Whitted
-    level loop (``cuda_whitted``'s binding) and from shading
-    (``cuda_intersect``'s)."""
-    inner = []
-
-    def shading_recorded():
-        inner.extend(recorded_launches(cuda_intersect, "nearest_hit", fn))
-
-    return recorded_launches(cuda_whitted, "nearest_hit",
-                             shading_recorded) + inner
+    """``fn()`` with every nearest-hit launch of the Whitted level loop
+    (``cuda_whitted``'s binding) recorded; the shading sweeps inside its
+    own kernel."""
+    return recorded_launches(cuda_whitted, "nearest_hit", fn)
 
 
 def rl_env(impl, dev):
@@ -2722,7 +2837,7 @@ def rl_env(impl, dev):
 def rl_env_phase(dev, card, launches):
     """Phase rl_env: 2,048 episodes of the RL env at the shipped
     configuration through the kernel route (the Whitted kernel at reset,
-    the nearest-hit kernel a level and in the shadow sweeps) and through
+    the nearest-hit kernel a level, the shading kernel) and through
     the plain route on the same draws: obs, rewards, done flags and totals
     bit for bit.  Returns the ``kernels`` entries of the reset's Whitted
     launch and of one step's nearest-hit launches."""
@@ -2784,8 +2899,8 @@ def rl_env_phase(dev, card, launches):
     check(equal, "rl_env: the kernel route differs from the plain route")
     check(w_equal and nh_equal, "rl_env: a recorded kernel call differs "
           "from its plain version")
-    check(counts["whitted_trace"] == 1 and counts["nearest_hit"] >= steps,
-          f"rl_env: launches {counts}")
+    check(counts["whitted_trace"] == 1 and counts["nearest_hit"] >= steps
+          and counts["whitted_shade"] >= steps, f"rl_env: launches {counts}")
     return [w_entry, nh_entry]
 
 
@@ -3107,7 +3222,7 @@ def animate_whitted_phase(dev, card, launches):
     400x300, the CLI's orbit around scene_focus) through
     render_whitted_frames: frame 0 equals the single-frame kernel render
     bit for bit, a frame's kernel route its plain route.  Returns the
-    ``kernels`` entries of one frame's Whitted and nearest-hit launches."""
+    ``kernels`` entries of one frame's Whitted and shading launches."""
     t0 = time.perf_counter()
     scene, gl, pl, p = library.planets2_scene(device=dev)
     eyes, target, radius, y = animation.turntable(
@@ -3139,20 +3254,22 @@ def animate_whitted_phase(dev, card, launches):
     w_calls = recorded_launches(cuda_whitted, "whitted_trace",
                                 lambda: one("kernel", k))
     w_equal, w_err = whitted_vs_plain(w_calls)
-    nh_calls = nearest_hit_calls(lambda: one("kernel", k))
-    nh_err, nh_same = sweep_vs_plain(nh_calls)
+    s_calls = recorded_launches(cuda_shade, "whitted_shade",
+                                lambda: one("kernel", k))
+    s_entry = shade_entry("whitted_shade_animate", s_calls)
     emit({"phase": "animate_whitted", **card,
           "frames": f"{TT_FRAMES} x {TT_W}x{TT_H}/{p['max_bounces']}",
           "target": [float(v) for v in target], "radius": radius, "y": y,
           "launches": counts,
           "launches_a_frame": {n: counts[n] / TT_FRAMES
-                               for n in ("whitted_trace", "nearest_hit")},
+                               for n in ("whitted_trace", "nearest_hit",
+                                         "whitted_shade")},
           "ms_a_frame": ms, "max_memory_allocated_bytes": peak,
           "frame0_equals_single_frame": single_equal,
           "frame_kernel_vs_plain_bit_equal": plain_equal,
           "frame_kernel_vs_plain_max_abs_err": plain_err,
           "recorded_whitted_bit_equal": w_equal,
-          "recorded_nearest_hit_same": nh_same,
+          "recorded_shade_bit_equal": s_entry["bit_equal"],
           "mean_pixel": float(imgs.mean()),
           "seconds": time.perf_counter() - t0})
     check(tuple(imgs.shape) == (TT_FRAMES, TT_H, TT_W, 3)
@@ -3161,16 +3278,15 @@ def animate_whitted_phase(dev, card, launches):
     check(single_equal, "animate_whitted: frame 0 != its single-frame render")
     check(plain_equal or plain_off <= W_PIXELS_OFF,
           f"animate_whitted: kernel vs plain {plain_err}, {plain_off} off")
-    check(w_equal and nh_same, "animate_whitted: a recorded launch differs "
-          "from its plain version")
-    check(counts["whitted_trace"] == TT_FRAMES
-          and counts["nearest_hit"] >= TT_FRAMES * pl.count,
+    check(w_equal and s_entry["bit_equal"], "animate_whitted: a recorded "
+          "launch differs from its plain version")
+    check(counts["whitted_trace"] == counts["whitted_shade"] == TT_FRAMES
+          and counts["nearest_hit"] == 0,
           f"animate_whitted: launches {counts}")
     w_entry = whitted_entry("whitted_trace_animate", w_calls, w_err)
-    nh_entry = sweep_entry("nearest_hit_animate", nh_calls, nh_err)
     w_entry["launches"] = counts["whitted_trace"]
-    nh_entry["launches"] = counts["nearest_hit"]
-    return [w_entry, nh_entry]
+    s_entry["launches"] = counts["whitted_shade"]
+    return [w_entry, s_entry]
 
 
 def animate_path_phase(dev, card, launches):
@@ -3335,8 +3451,8 @@ def whitted_compact_phase(dev, card, launches, trace_dir):
               "seconds": time.perf_counter() - t0})
         check(bool(torch.equal(img_c, img_p)) and tr_equal,
               f"whitted_compact {name}: compact != plain ({tr_err})")
-        check(counts["whitted_trace"] == 0
-              and counts["nearest_hit"] == len(work["lanes"]) + pl.count,
+        check(counts["whitted_trace"] == 0 and counts["whitted_shade"] == 1
+              and counts["nearest_hit"] == len(work["lanes"]),
               f"whitted_compact {name}: launches {counts}")
         if name == "planets2":
             err, same = sweep_vs_plain(calls)
@@ -4445,7 +4561,7 @@ def main():
           "library_note": "no single PyTorch call computes this function",
           "seconds": time.perf_counter() - t0})
 
-    whitted_kernels = whitted_phases(dev, card)
+    shade_kernel, whitted_kernels = whitted_phases(dev, card)
     guided_kernels = guided_phases(dev, card, scene, params, libs)
     norm_launches = fb_agent_phases(dev, card, scene, params)
     norm_kernel = guide_norm_phase(dev, card, scene, params, norm_launches)
@@ -4548,7 +4664,7 @@ def main():
     emit({"kernels": kernels + [walk_kernel, distill_kernel,
                                 output5_kernel] + rl_env_kernels
           + [rl_render_kernel] + animate_kernels + [compact_kernel]
-          + [norm_kernel]})
+          + [norm_kernel, shade_kernel]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

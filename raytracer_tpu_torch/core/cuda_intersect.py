@@ -4,8 +4,10 @@ sphere table the Whitted kernels read.
 Replaces ``raytracer_tpu/core/pallas_intersect.py::_kernel`` (reached
 through ``nearest_hit_pallas``).  The CUDA kernel is ``csrc/nearest_hit.cu``;
 its note says what bounds it on an H100 and what its design does about that.
-The Whitted tracer launches it for its shadow sweeps; the stepwise path
-tracer (``trace_path(impl="stepwise")``, ``cuda_path.level_stepwise``) once
+The Whitted tracer's plain level launches it with ``sweep="kernel"``
+and on the live lanes of ``impl="compact"`` (the RL env's steps among
+them; the shading sweeps inside its own kernel, ``cuda_shade.py``); the
+stepwise path tracer (``trace_path(impl="stepwise")``, ``cuda_path.level_stepwise``) once
 a bounce level, ``|t|``, nothing suppressed.
 
 ``nearest_hit`` launches the kernel for CUDA tensors and raises on anything

@@ -18,8 +18,9 @@ advance together; lanes already done pass through with zero reward.
 ``impl="kernel"`` (the default): ``reset`` traces through the Whitted
 kernel (``csrc/whitted_trace.cu``) and ``step`` through the plain level
 loop with the nearest-hit kernel (``csrc/nearest_hit.cu``) once a level,
-since the Whitted kernel traces from the camera entry only; shading's
-shadow sweeps take the nearest-hit kernel too.  On CPU tensors every
+since the Whitted kernel traces from the camera entry only; shading runs
+the shading kernel (``csrc/whitted_shade.cu``), its shadow sweeps
+inside.  On CPU tensors every
 kernel call runs its plain version.  ``impl="plain"`` keeps every trace
 and sweep in plain PyTorch (the kernels' reference on the card).
 

@@ -9,7 +9,7 @@ and path tracers.
 JAX maps one compiled program over the frames (``lax.map``), one dispatch
 for the sequence.  The port loops over the frames on the host: each
 Whitted frame is ``render/renderer.py::shade_flat`` on that frame's rays
-(the Whitted kernel and the shadow sweeps' nearest-hit launches on
+(the Whitted kernel and the shading kernel, its shadow sweeps inside, on
 ``cuda``; the plain route on the CPU), so every frame equals the
 single-frame ``render_whitted`` of the same rays bit for bit, JAX's own
 contract.  Each path frame is one ``trace_path`` through ``impl``

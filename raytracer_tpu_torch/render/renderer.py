@@ -9,12 +9,13 @@ Misses take ``miss_colour`` (Marbles 4's sky) and hits are shaded on
 ``background``.
 
 ``impl``: ``"kernel"`` traces through the whole-trace Whitted kernel and
-sends the shadow sweeps through the nearest-hit kernel (float32; float64
-raises); ``"plain"`` runs plain PyTorch in float32 or float64 (the
-reference-parity goldens run float64 this way); ``"compact"`` traces the
-plain level on the live lanes only, compacted between levels, each level's
-sweep and the shadow sweeps the nearest-hit kernel on ``cuda`` and plain on
-the CPU (one host read a level; the image equals ``"plain"``'s bit for
+shades through the Whitted shading kernel, its shadow sweeps inside
+(float32; float64 raises); ``"plain"`` runs plain PyTorch in float32 or
+float64 (the reference-parity goldens run float64 this way); ``"compact"``
+traces the plain level on the live lanes only, compacted between levels,
+each level's sweep the nearest-hit kernel and the shading the shading
+kernel on ``cuda``, plain on the CPU (one host read a level; the image
+equals ``"plain"``'s bit for
 bit; it is JAX's API, kept for parity: on the card the whole-trace kernel
 is several times faster, PERF.md §5); ``"auto"`` is ``"kernel"`` for rays on ``cuda`` and ``"plain"`` for
 rays on the CPU.  The JAX package's ``impl="pallas"`` maps to ``"kernel"``
@@ -41,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..core import cuda_intersect
 from ..core.device import resolve_device
 from ..core.vec import div_scalar
 from ..scene.types import GlobalLights, PointLights, Scene
@@ -73,22 +75,27 @@ def shade_flat(scene: Scene, glights: GlobalLights, plights: PointLights,
         raise ValueError(f"unknown impl {impl!r}")
     scene, glights, plights = scene.to(dev), glights.to(dev), plights.to(dev)
     background = tuple(float(b) for b in background)
-    miss = torch.tensor(background if miss_colour is None else
-                        tuple(float(c) for c in miss_colour),
-                        dtype=origins.dtype, device=dev)
+    if miss_colour is not None:
+        miss_colour = tuple(float(c) for c in miss_colour)
     with span("raytracer.whitted_trace"):
-        res = trace_whitted(scene, origins, dirs, max_bounces,
-                            enable_glass=enable_glass,
-                            enable_mirror=enable_mirror, impl=impl,
-                            sweep=sweep)
-    # Compact shades through the nearest-hit kernel, as its levels sweep.
+        # One table for the trace and the shading.  Its mirror and glass
+        # columns follow the flags, which material_flags sets False only
+        # where no sphere has the value (so they equal the scene's
+        # reflective == 1 and transparent == 1 either way); the shading
+        # reads only the table's geometry and ids.
+        table = cuda_intersect.sphere_table(scene, enable_glass,
+                                            enable_mirror)
+        res = trace_whitted(scene, origins, dirs, max_bounces, impl=impl,
+                            sweep=sweep, table=table)
+    # Compact shades through the shading kernel on the card, as the
+    # kernel route does.
     shade_impl = ("plain" if impl == "plain"
                   or (impl == "compact" and dev.type != "cuda")
                   else "kernel")
     with span("raytracer.shade"):
-        rgb = terminal_rgb(scene, glights, plights, res, background,
-                           impl=shade_impl)
-        return torch.where(res.hit[:, None], rgb, miss[None, :])
+        return terminal_rgb(scene, glights, plights, res, background,
+                            impl=shade_impl, table=table,
+                            miss_colour=miss_colour)
 
 
 def finish(flat: torch.Tensor, height: int, width: int,

@@ -14,8 +14,9 @@ on each edge.  ``chip_smoke.py`` (phase ``nearest_hit``) and the tests
 hold the kernel against ``nearest_hit_plain`` on them.
 
 ``shadow_rays`` and ``level_rays`` give the sweep's two timed shapes: the
-Whitted shadow sweep (``trace/shade.py``) and the stepwise path level's
-sweep (``raytracer_tpu/trace/path.py:711-713``).
+Whitted shadow sweep (``trace/shade.py``'s, which the shading kernel now
+runs inside itself) and the stepwise path level's sweep
+(``raytracer_tpu/trace/path.py:711-713``).
 
 ``sweep_model`` is the kernel's sweep in float32 PyTorch, op for op and
 in its order (each quantity computed only on the lanes where the kernel
@@ -167,7 +168,7 @@ def edge_case(seed: int, n_rays: int, device=None):
 
 def shadow_rays(res, point_lights, table: cuda_intersect.SphereTable):
     """The shadow sweep toward the first point light, as
-    ``trace/shade.py::terminal_rgb`` launches it: ``(origins, unit dirs,
+    ``trace/shade.py::terminal_rgb`` sweeps it: ``(origins, unit dirs,
     suppress_id)`` from a Whitted trace result's termini, the shaded
     sphere's id suppressed; trace by signed ``t``."""
     to_light = torch.nn.functional.normalize(point_lights.position[0]

@@ -15,16 +15,20 @@ Counterpart of ``raytracer_tpu/trace/shade.py``.  Per terminal hit:
 * ``background + round(albedo * light / 255)`` per channel, Python's
   banker's rounding (``torch.round``).
 
-``impl="kernel"`` sends the shadow sweeps through the nearest-hit kernel
-(``core/cuda_intersect.py::nearest_hit``, one launch per point light; its
-plain version for CPU tensors) and deeper shadow traces through the Whitted
-kernel; ``impl="plain"`` keeps both in plain PyTorch, in any float dtype.
+``impl="kernel"`` shades through the Whitted shading kernel
+(``core/cuda_shade.py::whitted_shade``, one launch with the shadow sweeps
+inside; its plain version for CPU tensors; float32), or, with
+``shadow_max_bounces > 0``, traces the shadow rays through the Whitted
+kernel; ``impl="plain"`` keeps everything in plain PyTorch, in any float
+dtype.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..core import cuda_intersect, vec
+from ..core import cuda_intersect, cuda_shade, vec
 from ..core.intersect import nearest_hit_c
 from ..scene.types import GlobalLights, PointLights, Scene
 from .whitted import TraceResult, trace_whitted
@@ -41,14 +45,23 @@ def incidence(angle: torch.Tensor, max_angle: torch.Tensor) -> torch.Tensor:
 
 def terminal_rgb(scene: Scene, glights: GlobalLights, plights: PointLights,
                  res: TraceResult, background, shadow_max_bounces: int = 0,
-                 *, impl: str = "plain") -> torch.Tensor:
+                 *, impl: str = "plain",
+                 table: Optional[cuda_intersect.SphereTable] = None,
+                 miss_colour=None) -> torch.Tensor:
     """Shade a wavefront of termini.  Returns raw reference-unit RGB
     ``[R, 3]`` (may exceed 255, as the reference's ``Colour`` does); lanes
-    with ``res.hit`` False get ``background``."""
+    with ``res.hit`` False get ``miss_colour`` (None: ``background``).
+    ``table``: the scene's ``cuda_intersect.sphere_table`` where the caller
+    has one (the trace's), so that none is built from the scene here."""
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown impl {impl!r}")
+    if impl == "kernel" and shadow_max_bounces == 0:
+        return cuda_shade.whitted_shade(scene, glights, plights, res,
+                                        background, miss_colour, table)
     dtype, dev = res.point.dtype, res.point.device
     bg = torch.as_tensor(background, dtype=dtype, device=dev)
+    miss = (bg if miss_colour is None
+            else torch.as_tensor(miss_colour, dtype=dtype, device=dev))
     px, py, pz = res.point[:, 0], res.point[:, 1], res.point[:, 2]
     nx, ny, nz = res.normal[:, 0], res.normal[:, 1], res.normal[:, 2]
     alb_r = scene.colour[:, 0].to(dtype)[res.idx]
@@ -76,7 +89,8 @@ def terminal_rgb(scene: Scene, glights: GlobalLights, plights: PointLights,
     # Point lights with shadow rays (RL/ray.py:47-62).
     if plights.count:
         self_id = scene.id[res.idx]
-        table = cuda_intersect.sphere_table(scene)
+        if table is None:
+            table = cuda_intersect.sphere_table(scene)
         light_ids = plights.id.tolist()
         funcs = plights.func.tolist()
         ppos = plights.position.to(dtype)
@@ -87,14 +101,9 @@ def terminal_rgb(scene: Scene, glights: GlobalLights, plights: PointLights,
         tx, ty, tz = ppos[p, 0] - px, ppos[p, 1] - py, ppos[p, 2] - pz
         if shadow_max_bounces == 0:
             sdx, sdy, sdz = vec.normalise_safe_c(tx, ty, tz)
-            if impl == "kernel":
-                _, sidx, sfound = cuda_intersect.nearest_hit(
-                    res.point.contiguous(), torch.stack([sdx, sdy, sdz], 1),
-                    self_id, table)
-            else:
-                sh = nearest_hit_c(px, py, pz, sdx, sdy, sdz, table.spec,
-                                   by_abs=False, suppress_id=self_id)
-                sidx, sfound = sh.idx, sh.found
+            sh = nearest_hit_c(px, py, pz, sdx, sdy, sdz, table.spec,
+                               by_abs=False, suppress_id=self_id)
+            sidx, sfound = sh.idx, sh.found
             glass_rule = ((transparent[sidx] == 1.0)
                           & (reflective[sidx] != 1.0))
             terminus_id = torch.where(sfound & ~glass_rule, scene.id[sidx],
@@ -123,4 +132,4 @@ def terminal_rgb(scene: Scene, glights: GlobalLights, plights: PointLights,
     sh_g = bg[1] + torch.round(vec.div_scalar(alb_g * il_g, 255.0))
     sh_b = bg[2] + torch.round(vec.div_scalar(alb_b * il_b, 255.0))
     shaded = torch.stack([sh_r, sh_g, sh_b], -1)
-    return torch.where(res.hit[:, None], shaded, bg[None, :])
+    return torch.where(res.hit[:, None], shaded, miss[None, :])

@@ -120,7 +120,7 @@ def trace_whitted(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
                   enable_glass: bool = True, enable_mirror: bool = True, *,
                   impl: str = "kernel", sweep: str = "plain",
                   precision: str = "exact",
-                  min_bucket: int = 1024) -> TraceResult:
+                  min_bucket: int = 1024, table=None) -> TraceResult:
     """Trace ``[R]`` rays to their Whitted termini.
 
     ``origins``/``dirs`` ``[R, 3]`` in the scene's float dtype, on its
@@ -130,7 +130,10 @@ def trace_whitted(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
     scene's glass / mirror spheres as terminal (``material_flags`` says
     when a scene has none).  ``precision="fast"``: the ``d2 <= r*r`` hit
     test of the TPU kernels in place of ``sqrt(d2) <= r``.
-    ``min_bucket``: the smallest compacted wavefront (``"compact"``)."""
+    ``min_bucket``: the smallest compacted wavefront (``"compact"``).
+    ``table``: the scene's ``cuda_intersect.sphere_table(scene,
+    enable_glass, enable_mirror)`` where the caller has built it (to shade
+    with it too); the flags then go unread."""
     if max_bounces < 0:
         raise ValueError(f"max_bounces must be >= 0, got {max_bounces}")
     if impl not in ("kernel", "plain", "compact"):
@@ -158,7 +161,9 @@ def trace_whitted(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
     dirs = dirs.to(dev, dtype).contiguous()
     if suppress_id is not None:
         suppress_id = suppress_id.to(dev, torch.int32).contiguous()
-    table = cuda_intersect.sphere_table(scene, enable_glass, enable_mirror)
+    if table is None:
+        table = cuda_intersect.sphere_table(scene, enable_glass,
+                                            enable_mirror)
     kw = dict(max_bounces=max_bounces, fast=precision == "fast")
     if impl == "kernel":
         return cuda_whitted.whitted_trace(origins, dirs, suppress_id, table,

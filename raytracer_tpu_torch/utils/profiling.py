@@ -118,13 +118,14 @@ def counters() -> Dict[str, int]:
     by route (``launches.path_trace.<route>``).  The work between two
     snapshots is their difference."""
     from ..core import (cuda_intersect, cuda_level, cuda_norm, cuda_path,
-                        cuda_whitted)
+                        cuda_shade, cuda_whitted)
     out = {"launches.path_trace": cuda_path.path_trace.launches}
     for route, n in cuda_path.path_trace.route_launches.items():
         out[f"launches.path_trace.{route}"] = n
     out["launches.path_level"] = cuda_level.path_level.launches
     out["launches.nearest_hit"] = cuda_intersect.nearest_hit.launches
     out["launches.whitted_trace"] = cuda_whitted.whitted_trace.launches
+    out["launches.whitted_shade"] = cuda_shade.whitted_shade.launches
     out["launches.guide_norm"] = cuda_norm.guide_norm.launches
     out.update(_COUNTS)
     return out

@@ -117,7 +117,7 @@ def whitted(dev, card):
             o, d, None, table, max_bounces=p["max_bounces"]))
         stages["kernel"].append(t)
         rgb, t = stage_ms(lambda: terminal_rgb(
-            scene, gl, pl, res, kw["background"], impl="kernel"))
+            scene, gl, pl, res, kw["background"], impl="kernel", table=table))
         stages["shading"].append(t)
         bg = torch.tensor(kw["background"], dtype=torch.float32, device=dev)
         _, t = stage_ms(lambda: torch.clamp_max(div_scalar(torch.where(

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from raytracer_tpu_torch.core import (cuda_intersect, cuda_level, cuda_path,
-                                      cuda_whitted)
+                                      cuda_shade, cuda_whitted)
 from raytracer_tpu_torch.core.intersect import NO_SUPPRESS
 from raytracer_tpu_torch.fb.config import FBConfig
 from raytracer_tpu_torch.fb.inference import (TrainedFBAgent,
@@ -207,7 +207,8 @@ def test_whitted_kernels_match_plain_on_card(name):
     bit-equal traces (the camera entry, ids suppressed on every third ray
     and, for the shadow budget, a budget of 0), bit-equal nearest hits on
     both metrics and both hit tests, and bit-equal frames (impl="kernel"
-    launching both kernels, and sweep="kernel")."""
+    launching the Whitted kernel and the shading kernel, and no nearest-hit
+    kernel, and sweep="kernel")."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: run on the card with "
                     "python -m pytest --noconftest tests/test_torch_kernel.py "
@@ -246,14 +247,17 @@ def test_whitted_kernels_match_plain_on_card(name):
     kw = dict(max_bounces=p["max_bounces"], background=p["background"],
               miss_colour=p.get("sky_colour"))
     before = (cuda_whitted.whitted_trace.launches,
-              cuda_intersect.nearest_hit.launches)
+              cuda_intersect.nearest_hit.launches,
+              cuda_shade.whitted_shade.launches)
     img_k = render_whitted(scene, gl, pl, o, d, h, w, impl="kernel", **kw)
+    assert (cuda_whitted.whitted_trace.launches,
+            cuda_intersect.nearest_hit.launches,
+            cuda_shade.whitted_shade.launches) == (before[0] + 1, before[1],
+                                                   before[2] + 1)
     img_p = render_whitted(scene, gl, pl, o, d, h, w, impl="plain", **kw)
     img_s = render_whitted(scene, gl, pl, o, d, h, w, impl="plain",
                            sweep="kernel", **kw)
     torch.cuda.synchronize()
-    assert cuda_whitted.whitted_trace.launches == before[0] + 1
-    assert cuda_intersect.nearest_hit.launches > before[1] or pl.count == 0
     assert torch.equal(img_k, img_p) and torch.equal(img_s, img_p)
     res = trace_whitted(scene, o, d, p["max_bounces"], enable_glass=eg,
                         enable_mirror=em, impl="kernel")
@@ -770,7 +774,7 @@ def test_output5_kernel_sweep_equals_plain_on_card(method):
 @pytest.mark.parametrize("variant", ["rl", "fb"])
 def test_rl_env_and_renderer_kernel_routes_on_card(variant):
     """The RL env's kernel route (the Whitted kernel at reset, the
-    nearest-hit kernel a level and in the shadow sweeps) equals its plain
+    nearest-hit kernel a level, the shading kernel) equals its plain
     route on the card bit for bit, 512 episodes on the same draws; the RL
     renderer's Whitted-kernel image equals its plain image."""
     if not torch.cuda.is_available():
